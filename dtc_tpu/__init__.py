@@ -1,16 +1,16 @@
-"""dtc_tpu — TPU-native JAX framework for discrete-time-crystal (DTC) noise
-resilience studies.
+"""dtc_tpu — JAX framework for discrete-time-crystal (DTC) noise resilience
+studies, run on an NVIDIA H100.
 
 A ground-up re-design of the capabilities of the reference codebase
 `Noise-Resilience-in-Discrete-Time-Crystal-Realizations-on-Quantum-Computers`
 (kicked-Ising Floquet circuits simulated with Qiskit Aer; see
 /root/reference/autocorr-delta-a-single-qiskit-fast.py) as an idiomatic
-JAX/XLA/Pallas library:
+JAX/XLA library:
 
 - statevector & vectorized density-matrix engines (`dtc_tpu.core`)
-- fused TPU gate kernels (`dtc_tpu.ops`)
+- fused gate layers (`dtc_tpu.ops`)
 - kicked-Ising drive families & Aer-equivalent noise (`dtc_tpu.models`)
-- amplitude-sharded multi-chip simulation (`dtc_tpu.parallel`)
+- amplitude-sharded multi-device simulation (`dtc_tpu.parallel`)
 - experiment drivers, reference-compatible CSV IO, analysis/fits
   (`dtc_tpu.experiments`, `dtc_tpu.io`, `dtc_tpu.analysis`)
 """

@@ -2,7 +2,6 @@
 
 from dtc_tpu.core.statevector import initial_statevector  # noqa: F401
 from dtc_tpu.core.evolve import (  # noqa: F401
-    FloquetParams,
     autocorr_echo,
     autocorr_forward,
     evolve_observables,

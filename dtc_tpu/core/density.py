@@ -13,8 +13,8 @@ In this layout:
 
 so the WHOLE noisy Floquet cycle is the same kron-grouped-matmul + mask
 machinery as the statevector engine, with local dimension 4: the kick+depol
-slot is a single uniform 4x4-per-site layer (grouped into 64x64 = MXU-sized
-matmuls), not 2L sequential channel applications.
+slot is a single uniform 4x4-per-site layer (grouped into 64x64 matmuls),
+not 2L sequential channel applications.
 
 Direct-mode autocorrelator on the DM: the ancilla coherence block of the
 Hadamard-test evolves as the (non-Hermitian) operator B_0 = rho_0 Z_q pushed
@@ -424,7 +424,7 @@ def dm_autocorr_forward_run(hs, phis, angles, *, L, T, K, p, q,
 
     The EXACT density-matrix mode of the autocorr experiment (BASELINE
     config 1: L=4 DTC, depol 0.05, density-matrix). Complex state built
-    inside jit (TPU backend cannot transfer complex host<->device).
+    inside jit from real inputs.
     """
     from dtc_tpu.core.statevector import initial_statevector
     from dtc_tpu.experiments.engine import resolve_dtype

@@ -207,16 +207,15 @@ def device_autocorr_echo(hs, phis, p_1q, p_2q, angles, keys, t_value, *, L, T,
 
 
 # ---------------------------------------------------------------------------
-# sigma-frame (gather-free) device-noise forward engine — survives large L
-# (the gather path crashes the TPU worker above ~L=24; the factored engine
-# has no gathers and was validated alive at L=27).
+# sigma-frame (gather-free) device-noise engines for x-polarized drives:
+# no per-string gathers, and the per-cycle work stays on the kick einsums.
 
 
 def _device_presample_split(key, model_p1, model_p2, epk, T, L):
     """Presample all device-noise events for one trajectory, per-event.
 
-    RNG consumption (the determinism contract shared with the kernel and
-    sigma engines): k1/k2/k3 = split(key, 3); u1 (T, epk, L) for the 1q
+    RNG consumption (the determinism contract shared by the sigma engines
+    and the original-order oracles): k1/k2/k3 = split(key, 3); u1 (T, epk, L) for the 1q
     events, ue/uo (T, n_bonds) for the even/odd 2q events. Returns per-step
     ((T, epk) xm1/zm1, (T,) xme/zme, xmo/zmo) Pauli masks.
     """
@@ -321,69 +320,6 @@ def _device_presample_echo(key, model_p1, model_p2, epk, t_value, T, L):
     return (xm_kick, zm_1q, xme, zme, xmo, zmo, sig_start, csum, fwd, inv)
 
 
-def device_echo_pair_tiles(key, t_value, h, ph, p_1q, p_2q, *, L, T, epk,
-                           width: int = 128):
-    """(2*2T, width) interleaved (pre, post) compact step tiles for one
-    (trajectory, t) DEVICE-noise echo pair, plus the final sigma — the
-    device counterpart of ops.pallas_resident.echo_pair_tiles; the echo
-    kernels run UNCHANGED.
-
-    Forward step (kick; epk 1q events; D_even; even 2q event; D_odd; odd
-    event; D_field — device_forward_cycle): pre row inactive, post row =
-    pack_device_cycle_params_compact at the per-class frames (even bonds
-    at sa, odd at sb, field at sc) with ALL the step's Z-masks composed
-    into the n lanes (every event sits after the kick, so post placement
-    is exact).
-
-    Inverse step (D_field*; D_odd*; odd event; D_even*; even event; K*;
-    1q events — device_inverse_cycle): pre row = the DAGGERED split
-    diagonal, i.e. pack_device with permuted frames (even bonds at
-    s1 = sig0 ^ xm_odd, odd AND field at the step-start sig0) and negated
-    h/phi, carrying the 2q events' Z-masks (they precede the kick); post
-    row = the 1q events' Z-mask only (they follow the inverse kick).
-    """
-    if 5 * L - 2 > width - 4:
-        raise ValueError(
-            f"L={L} data lanes collide with the flag lanes at width={width}")
-    from dtc_tpu.ops.pallas_noise import pack_device_cycle_params_compact
-
-    T2 = 2 * T
-    (xm_kick, zm_1q, xme, zme, xmo, zmo, sig0, csum, fwd, inv) = (
-        _device_presample_echo(key, p_1q, p_2q, epk, t_value, T, L))
-    zeros_h = jnp.zeros_like(h)
-    zeros_p = jnp.zeros_like(ph)
-    step_i = jnp.arange(T2)
-
-    def one_step(xmk_k, zm1_k, xme_k, zme_k, xmo_k, zmo_k, sig0_k, sc_k,
-                 fwd_k, inv_k, aidx_k):
-        sa = sig0_k ^ xmk_k
-        sb = sa ^ xme_k
-        post_f = pack_device_cycle_params_compact(
-            zm1_k ^ zme_k ^ zmo_k, sa, sb, sc_k, h, ph, L, width=width)
-        s1 = sig0_k ^ xmo_k
-        pre_i = pack_device_cycle_params_compact(
-            zme_k ^ zmo_k, s1, sig0_k, sig0_k, -h, -ph, L, width=width)
-        post_i = pack_device_cycle_params_compact(
-            zm1_k, jnp.uint32(0), jnp.uint32(0), jnp.uint32(0),
-            zeros_h, zeros_p, L, width=width)
-        pre = pre_i * inv_k.astype(jnp.float32)
-        post = (post_f * fwd_k.astype(jnp.float32)
-                + post_i * inv_k.astype(jnp.float32))
-        imag_sign = jnp.where(inv_k, -1.0, 1.0)
-        active = (fwd_k | inv_k).astype(jnp.float32)
-        pre = (pre.at[width - 3].set(imag_sign).at[width - 2].set(active)
-               .at[width - 1].set(aidx_k.astype(jnp.float32)))
-        return jnp.stack([pre, post])
-
-    aidx = jnp.where(fwd, step_i,
-                     jnp.clip(2 * t_value - 1 - step_i, 0, T - 1))
-    tiles = jax.vmap(one_step)(xm_kick, zm_1q, xme, zme, xmo, zmo, sig0,
-                               csum, fwd, inv, aidx)
-    tiles = tiles.reshape(2 * T2, width)
-    tiles = tiles.at[0, width - 4].set((2 * t_value).astype(jnp.float32))
-    return tiles, csum[-1]
-
-
 def _device_column_factors(q0, k, pend_zm, sa, sb, sc, exp_h, exp_p, L, dtype):
     """Column factors with per-coefficient-class sigmas: field h from sc,
     even bonds from sa, odd bonds from sb (exact event placement)."""
@@ -410,107 +346,6 @@ def _device_column_factors(q0, k, pend_zm, sa, sb, sc, exp_h, exp_p, L, dtype):
     return out
 
 
-@functools.partial(
-    jax.jit,
-    static_argnames=("L", "T", "q", "initial_state", "ancilla_factor",
-                     "events_per_kick", "interpret"),
-)
-def device_kernel_forward_batch(hs, phis, p_1q, p_2q, angles, keys, *, L, T,
-                                q, initial_state="vacuum", ancilla_factor=1.0,
-                                events_per_kick=2, interpret=False):
-    """Device-noise forward A(t) through the x-only Pallas kernels
-    (VERDICT r2 missing #3: device-noise trajectories previously ran only
-    the deopted XLA sigma path).
-
-    The kernels run UNCHANGED: pack_device_cycle_params_compact encodes
-    the device event structure (per-site 1q events after the kick, 2q
-    events after each RZZ sublayer — core.device_evolve._device_presample)
-    into the same compact row the flat-noise kernels read, with
-    per-coefficient-class sigma checkpoints in the sig/flip lanes.
-    Constant x drives, K=1, q < 14 at L <= 23 / any q < L above;
-    17 <= L <= 23 rides the blocked-plane
-    VMEM-resident kernel, 24 <= L <= 28 the HBM-streamed kernel,
-    29 <= L <= 30 the r2-blocked streamed-hi kernel.
-    (L=27 is BASELINE config 4's scale — the FakeBrisbane analogue,
-    autocorr-delta-a-single-qiskit-fast.py:77-79.)
-
-    hs (L,), phis (L-1,), p_1q (L,), p_2q (L-1,), keys (n_traj, 2) ->
-    (n_traj, T).
-    """
-    from dtc_tpu.ops.pallas_noise import pack_device_cycle_params_compact
-    from dtc_tpu.ops.pallas_resident_blocked import blocked_forward_batch
-    from dtc_tpu.ops.pallas_streamed import streamed_forward_batch
-    from dtc_tpu.ops.pallas_streamed_hi import streamed_hi_forward_batch
-
-    if not (17 <= L <= 30):
-        raise ValueError("device kernel path supports 17 <= L <= 30")
-    width = 128 if 5 * L - 2 <= 128 else 256
-
-    def sample(key):
-        zm, sa, sb, sc = _device_presample(
-            key, p_1q, p_2q, events_per_kick, T, L)
-        rows = jax.vmap(lambda z, a, b, c: pack_device_cycle_params_compact(
-            z, a, b, c, hs, phis, L, width=width))(zm, sa, sb, sc)
-        return rows, sc
-
-    rows, sig = jax.vmap(sample)(keys)  # (n, T, width), (n, T)
-    batch = (blocked_forward_batch if L <= 23 else
-             streamed_forward_batch if L <= 28 else
-             streamed_hi_forward_batch)
-    vals = batch(hs[None], phis[None], angles, keys[None], L=L, T=T, p=0.0,
-                 q=q, initial_state=initial_state,
-                 ancilla_factor=ancilla_factor, interpret=interpret,
-                 ext_rows=rows[None], ext_sig=sig[None])
-    return vals[0]
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("L", "T", "q", "initial_state", "ancilla_factor",
-                     "events_per_kick", "interpret"),
-)
-def device_kernel_echo_batch(hs, phis, p_1q, p_2q, angles, keys, ts, *, L, T,
-                             q, initial_state="vacuum", ancilla_factor=1.0,
-                             events_per_kick=2, interpret=False):
-    """Device-noise echo A0(t) through the x-only Pallas ECHO kernels.
-
-    Per (trajectory, t) pair the UNCHANGED blocked (17 <= L <= 23) /
-    streamed (24 <= L <= 28) / streamed-hi (29 <= L <= 30) echo kernel
-    runs 2t active masked steps whose (pre, post) compact rows carry the
-    device event structure (device_echo_pair_tiles). Previously device
-    echo only had the dense gather path (device_autocorr_echo), which
-    crashes the TPU worker above ~L=24 — this is the echo half of
-    BASELINE config 4 (autocorr-delta-a-single-qiskit-fast.py:77-79,140-147).
-
-    hs (L,), phis (L-1,), p_1q (L,), p_2q (L-1,), keys (n_traj, 2),
-    ts (n_ts,) int32 -> (n_traj, n_ts).
-    """
-    from dtc_tpu.ops.pallas_resident_blocked import blocked_echo_batch
-    from dtc_tpu.ops.pallas_streamed import streamed_echo_batch
-    from dtc_tpu.ops.pallas_streamed_hi import streamed_hi_echo_batch
-
-    if not (17 <= L <= 30):
-        raise ValueError("device kernel path supports 17 <= L <= 30")
-    width = 128 if 5 * L - 2 <= 124 else 256
-
-    def tiles_one(key):
-        return jax.vmap(lambda t: device_echo_pair_tiles(
-            key, t, hs, phis, p_1q, p_2q, L=L, T=T, epk=events_per_kick,
-            width=width))(ts)
-
-    tiles, sig_fin = jax.vmap(tiles_one)(keys)  # (n, n_ts, 4T, width), (n, n_ts)
-    batch = (blocked_echo_batch if L <= 23 else
-             streamed_echo_batch if L <= 28 else
-             streamed_hi_echo_batch)
-    vals = batch(hs[None], phis[None], angles, keys[None], ts, L=L, T=T,
-                 p=0.0, q=q, initial_state=initial_state,
-                 ancilla_factor=ancilla_factor, interpret=interpret,
-                 ext_tiles=tiles[None], ext_sig=sig_fin[None])
-    return vals[0]
-
-
-
-
 def _require_constant_x(angles, fname):
     """The sigma-frame device engines evolve EVERY cycle with
     angles[0, 0] — calling them with a per-cycle or K > 1 schedule would
@@ -525,8 +360,9 @@ def _require_constant_x(angles, fname):
         raise ValueError(
             f"{fname} supports only CONSTANT x-polarized K=1 kick "
             f"schedules (got shape {getattr(ang, 'shape', None)}); use "
-            "device_general_kernel_forward_batch/_echo_batch or the dense "
-            "gather engine for general drives")
+            "the dense gather engine (device_autocorr_forward/_echo) for "
+            "general drives")
+
 
 @functools.partial(
     jax.jit,
@@ -536,9 +372,7 @@ def _require_constant_x(angles, fname):
 def _device_sigma_echo_batch_jit(hs, phis, p_1q, p_2q, angles, keys, ts, *, L, T,
                             q, initial_state="vacuum", dtype_name="complex64",
                             ancilla_factor=1.0, events_per_kick=2):
-    """Gather-free device-noise echo A0(t) — the exact-event ORACLE for the
-    kernel path and the large-L fallback engine (the dense gather path,
-    device_autocorr_echo, crashes the TPU worker above ~L=24).
+    """Gather-free device-noise echo A0(t) for x-polarized drives.
 
     x-polarized constant drives (K=1). Masked fixed-length 2T scan; every
     step applies [pre-mask] -> kick -> [post-mask] where the masks are
@@ -546,10 +380,7 @@ def _device_sigma_echo_batch_jit(hs, phis, p_1q, p_2q, angles, keys, ts, *, L, T
     parameters: stored state s~ with physical = X^sigma s~; a diagonal
     applied physically at frame sigma becomes the mask with h_q -> h_q *
     (1 - 2 sigma_q) and phi_b -> phi_b * (1 - 2 flip_b); a Pauli Z-mask
-    becomes a popcount-parity sign (global signs cancel in |amp|^2). The
-    per-step 2^L mask construction deopts the scan (docs/PERFORMANCE.md
-    rule 4) — that is the point: an independent data path from the kernel,
-    sharing only the presampled events.
+    becomes a popcount-parity sign (global signs cancel in |amp|^2).
 
     keys (n_traj, 2), ts (n_ts,) -> (n_traj, n_ts).
     """
@@ -708,100 +539,10 @@ def _device_sigma_forward_batch_jit(hs, phis, p_1q, p_2q, angles, keys, *, L, T,
     return jax.vmap(per_traj)(keys)
 
 
-# ---------------------------------------------------------------------------
-# GENERAL polarizations under device noise at kernel rate (VERDICT r3 #5).
-#
-# The x-only device path defers sampled Xs into a carried sigma frame —
-# impossible for kicks with a Y component (X RY(t) X = RY(-t)). The general
-# (lab-frame) kernels instead take per-step Pauli masks folded into the kick
-# they follow plus per-step h/phi rows (ops/pallas_resident_general). Device
-# noise maps onto that hook EXACTLY, host-side only, by commuting each
-# mid-diagonal bond event right, through the diagonal sublayers, into the
-# post-kick Pauli slot of the final kick slot:
-#
-#   field . E_o . odd . E_e . even . E_1q . U
-#     = field . odd^{E_o} . even^{E_e + E_o} . (E_o E_e E_1q) . U
-#
-# (operator product, rightmost acts first). Conjugating a ZZ phase by X_m
-# flips its angle iff the mask parity across the bond is odd, so the only
-# change is a +-1 sign pattern on the final slot's even/odd phi entries
-# (field and h rows pass through untouched — nothing moves past them), a
-# composed X/Z mask (Pauli composition is exact up to a global phase,
-# invisible to <Z_q>), and the kernels run UNCHANGED. Mirrors the reference
-# device-noise mode (autocorr-delta-a-single-qiskit-fast.py:77-79) crossed
-# with its general drives (…-circular-polarization.py:110-142).
-# ---------------------------------------------------------------------------
-
-
-def _bond_parity_row(mask, L):
-    """uint32 (…,) mask -> (…, L-1) float +-1: bond-parity sign of mask."""
-    j = jnp.arange(L - 1, dtype=jnp.uint32)
-    bj = ((mask[..., None] >> j) & 1).astype(jnp.int32)
-    bj1 = ((mask[..., None] >> (j + 1)) & 1).astype(jnp.int32)
-    return (1 - 2 * (bj ^ bj1)).astype(jnp.float32)
-
-
-def _device_general_rows(key, phis, p_1q, p_2q, epk, T, K, L):
-    """Per-trajectory (S=T*K,) composed z/x masks + (S, L-1) phi rows for
-    the general kernels' ext hook. RNG: one _device_presample_split draw
-    with K*epk 1q events per cycle (slot-major), the shared even/odd bond
-    draws per cycle."""
-    xm1, zm1, xme, zme, xmo, zmo = _device_presample_split(
-        key, p_1q, p_2q, K * epk, T, L)
-    xk, zk = _compose_1q(xm1.reshape(T, K, epk), zm1.reshape(T, K, epk),
-                         epk)
-    # final slot composes the commuted bond events
-    xk = xk.at[:, K - 1].set(xk[:, K - 1] ^ xme ^ xmo)
-    zk = zk.at[:, K - 1].set(zk[:, K - 1] ^ zme ^ zmo)
-
-    # even bonds conjugated by E_e . E_o, odd bonds by E_o only
-    s_eo = _bond_parity_row(xme ^ xmo, L)   # (T, L-1)
-    s_o = _bond_parity_row(xmo, L)
-    j = jnp.arange(L - 1)
-    sign = jnp.where(j % 2 == 0, s_eo, s_o)
-    phi_fin = phis.astype(jnp.float32)[None] * sign          # (T, L-1)
-    phi_rows = jnp.zeros((T, K, L - 1), jnp.float32)
-    phi_rows = phi_rows.at[:, K - 1].set(phi_fin)
-    S = T * K
-    return zk.reshape(S), xk.reshape(S), phi_rows.reshape(S, L - 1)
-
-
 def device_sigma_forward_batch(hs, phis, p_1q, p_2q, angles, keys, **kw):
     _require_constant_x(angles, "device_sigma_forward_batch")
     return _device_sigma_forward_batch_jit(hs, phis, p_1q, p_2q, angles,
                                            keys, **kw)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("L", "T", "K", "q", "initial_state", "ancilla_factor",
-                     "events_per_kick", "interpret"),
-)
-def device_general_kernel_forward_batch(hs, phis, p_1q, p_2q, angles, keys,
-                                        *, L, T, K, q,
-                                        initial_state="vacuum",
-                                        ancilla_factor=1.0,
-                                        events_per_kick=2, interpret=False):
-    """Device-noise forward A(t) for ANY kick schedule (y/xy/yx/circular/
-    per-cycle g) through the UNCHANGED lab-frame general kernels,
-    14 <= L <= 23 (resident below 18, blocked-plane above).
-
-    hs (L,), phis (L-1,), p_1q (L,), p_2q (L-1,), angles (T,K,2),
-    keys (n_traj, 2) -> (n_traj, T).
-    """
-    from dtc_tpu.ops.pallas_resident_general import general_forward_batch
-
-    if not (14 <= L <= 23):
-        raise ValueError("device general kernel path supports 14 <= L <= 23")
-
-    zm, xm, phi_rows = jax.vmap(
-        lambda k: _device_general_rows(
-            k, phis, p_1q, p_2q, events_per_kick, T, K, L))(keys)
-    return general_forward_batch(
-        hs[None], phis[None], angles, keys[None], L=L, T=T, K=K, p=0.0,
-        q=q, initial_state=initial_state, ancilla_factor=ancilla_factor,
-        interpret=interpret, ext_zm=zm[None], ext_xm=xm[None],
-        ext_phi=phi_rows[None])[0]
 
 
 @functools.partial(
@@ -813,9 +554,10 @@ def device_general_forward_oracle(hs, phis, p_1q, p_2q, angles, keys, *, L,
                                   T, K, q, initial_state="vacuum",
                                   dtype_name="complex64",
                                   ancilla_factor=1.0, events_per_kick=2):
-    """Dense lab-frame oracle consuming the SAME presampled events as
-    _device_general_rows but applying them in the ORIGINAL circuit order
-    (no commutation) — trajectory-exact validation of the sign algebra.
+    """Dense lab-frame device-noise forward for any kick schedule, applying
+    presampled events (_device_presample_split with K*epk 1q events per
+    cycle) in the ORIGINAL circuit order — the test reference for the
+    device-noise engines.
     """
     from dtc_tpu.core.statevector import neel_index
     from dtc_tpu.experiments.engine import resolve_dtype
@@ -859,126 +601,14 @@ def device_general_forward_oracle(hs, phis, p_1q, p_2q, angles, keys, *, L,
     return jax.vmap(per_traj)(keys)
 
 
-def _site_sign_row(mask, L):
-    """uint32 (…,) mask -> (…, L) float +-1: per-site sign of mask bits."""
-    j = jnp.arange(L, dtype=jnp.uint32)
-    b = ((mask[..., None] >> j) & 1).astype(jnp.int32)
-    return (1 - 2 * b).astype(jnp.float32)
-
-
-def _device_general_echo_rows(key, t_value, hs, phis, p_1q, p_2q, epk, T, K,
-                              L):
-    """Per-(trajectory, t) ext rows for the general ECHO kernels.
-
-    Mirror of the forward commutation, time-reversed: an inverse cycle runs
-    field^ . odd^ . E_o . even^ . E_e . kicks (device_inverse_cycle), so its
-    bond events commute EARLIER — through the full prediag (conjugating it)
-    and through the PREVIOUS step's postdiag (the turnaround's D0 when the
-    previous step is the last forward cycle) — into the previous step's
-    final-slot post-kick Pauli hook. Per-sublayer crossings: E_e crosses
-    even/odd/field (flip by xme), E_o crosses odd/field only (flip by xmo);
-    the previous post-D0 is crossed by both (flip by xme^xmo, h sites
-    included). All signs land in rows the host already owns.
-
-    Returns xm, zm (2T, K) uint32; pre_h (2T, L), pre_phi (2T, L-1) —
-    prediag rows (inverse steps); post_h, post_phi — postdiag rows
-    (forward steps, turnaround conjugation applied).
-    """
-    T2 = 2 * T
-    xm1, zm1, xme, zme, xmo, zmo = _device_presample_split(
-        key, p_1q, p_2q, K * epk, T2, L)
-    xk, zk = _compose_1q(xm1.reshape(T2, K, epk), zm1.reshape(T2, K, epk),
-                         epk)
-
-    step = jnp.arange(T2)
-    fwd = step < t_value
-    inv = (step >= t_value) & (step < 2 * t_value)
-    act = fwd | inv
-    z32 = jnp.uint32(0)
-    xk = jnp.where(act[:, None], xk, z32)
-    zk = jnp.where(act[:, None], zk, z32)
-    xme, zme, xmo, zmo = (jnp.where(act, m, z32)
-                          for m in (xme, zme, xmo, zmo))
-    m_eo = xme ^ xmo
-    z_eo = zme ^ zmo
-
-    hf = hs.astype(jnp.float32)
-    pf = phis.astype(jnp.float32)
-    j = jnp.arange(L - 1)
-    fwd_f = fwd.astype(jnp.float32)[:, None]
-    inv_f = inv.astype(jnp.float32)[:, None]
-
-    # forward steps: own bond events into the final slot + post-D0 signs
-    xk = xk.at[:, K - 1].set(
-        xk[:, K - 1] ^ jnp.where(fwd, m_eo, z32))
-    zk = zk.at[:, K - 1].set(
-        zk[:, K - 1] ^ jnp.where(fwd, z_eo, z32))
-    sign_fwd = jnp.where(j % 2 == 0, _bond_parity_row(m_eo, L),
-                         _bond_parity_row(xmo, L))
-    post_h = fwd_f * hf[None] + jnp.zeros((T2, L), jnp.float32)
-    post_phi = fwd_f * pf[None] * sign_fwd
-
-    # inverse steps: bond events fold into the PREVIOUS step's final slot,
-    # conjugating that step's postdiag on the way (nonzero only at the
-    # turnaround, where the previous step is forward and carries D0)
-    pad_m = jnp.concatenate([jnp.where(inv, m_eo, z32)[1:],
-                             jnp.zeros((1,), jnp.uint32)])
-    pad_z = jnp.concatenate([jnp.where(inv, z_eo, z32)[1:],
-                             jnp.zeros((1,), jnp.uint32)])
-    xk = xk.at[:, K - 1].set(xk[:, K - 1] ^ pad_m)
-    zk = zk.at[:, K - 1].set(zk[:, K - 1] ^ pad_z)
-    post_h = post_h * _site_sign_row(pad_m, L)
-    post_phi = post_phi * _bond_parity_row(pad_m, L)
-
-    # inverse prediag: D0^dagger with the crossing conjugations
-    pre_h = -inv_f * hf[None] * _site_sign_row(m_eo, L)
-    sign_pre = jnp.where(j % 2 == 0, _bond_parity_row(xme, L),
-                         _bond_parity_row(m_eo, L))
-    pre_phi = -inv_f * pf[None] * sign_pre
-    return xk, zk, pre_h, pre_phi, post_h, post_phi
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("L", "T", "K", "q", "initial_state", "ancilla_factor",
-                     "events_per_kick", "interpret"),
-)
-def device_general_kernel_echo_batch(hs, phis, p_1q, p_2q, angles, keys, ts,
-                                     *, L, T, K, q, initial_state="vacuum",
-                                     ancilla_factor=1.0, events_per_kick=2,
-                                     interpret=False):
-    """Device-noise echo A0(t) for ANY kick schedule through the UNCHANGED
-    lab-frame general echo kernels, 14 <= L <= 23.
-
-    hs (L,), phis (L-1,), p_1q (L,), p_2q (L-1,), angles (T,K,2),
-    keys (n_traj, 2), ts (n_ts,) -> (n_traj, n_ts).
-    """
-    from dtc_tpu.ops.pallas_resident_general import general_echo_batch
-
-    if not (14 <= L <= 23):
-        raise ValueError("device general kernel path supports 14 <= L <= 23")
-
-    def rows_one(key):
-        return jax.vmap(lambda t: _device_general_echo_rows(
-            key, t, hs, phis, p_1q, p_2q, events_per_kick, T, K, L))(ts)
-
-    xm, zm, pre_h, pre_phi, post_h, post_phi = jax.vmap(rows_one)(keys)
-    return general_echo_batch(
-        hs[None], phis[None], angles, keys[None], ts, L=L, T=T, K=K, p=0.0,
-        q=q, initial_state=initial_state, ancilla_factor=ancilla_factor,
-        interpret=interpret, ext_xm=xm[None], ext_zm=zm[None],
-        ext_pre_h=pre_h[None], ext_pre_phi=pre_phi[None],
-        ext_post_h=post_h[None], ext_post_phi=post_phi[None])[0]
-
-
 def device_general_echo_oracle(hs, phis, p_1q, p_2q, angles, key, t_value,
                                *, L, T, K, q, initial_state="vacuum",
                                dtype_name="complex64", ancilla_factor=1.0,
                                events_per_kick=2):
-    """Dense lab-frame echo oracle: SAME presample as
-    _device_general_echo_rows, events applied in the ORIGINAL
-    device_inverse_cycle order (no commutation). One trajectory, one t;
-    eager python loop — test-scale only."""
+    """Dense lab-frame echo oracle: the device_general_forward_oracle
+    presample over 2T steps, events applied in the ORIGINAL
+    device_inverse_cycle order. One trajectory, one t; eager python loop —
+    test-scale only."""
     import numpy as np
 
     from dtc_tpu.core.statevector import neel_index

@@ -15,8 +15,7 @@ evolving two branches phi1 = V|psi>, phi2 = V Z_q|psi> under the SAME
 trajectory noise (a sampled Pauli acts on the full superposed state in the
 faithful picture, i.e. identically on both branches), and folding the six
 noisy ancilla u2 gates into the exact analytic (1-p)^6 prefactor (see
-dtc_tpu.models.noise). An ancilla-faithful mode lives in
-dtc_tpu.core.faithful for validation.
+dtc_tpu.models.noise).
 """
 
 from __future__ import annotations
@@ -41,10 +40,6 @@ def make_floquet_params(hs, phis, L: int, *, dtype=jnp.complex64):
     """Precompute per-instance masks: fused diagonal phase, probe-Z sign."""
     diag = zz_z_phase_mask(hs[:L], phis[: L - 1], L, dtype=dtype)
     return diag
-
-
-class FloquetParams:  # kept for import stability; see make_floquet_params
-    pass
 
 
 def _noise_layer(state, key, p, L, active=None):
@@ -183,15 +178,11 @@ def evolve_observables(
     ``estimator_noise_factor`` optionally contracts the X part by (1-p) to
     mirror BackendEstimatorV2's noisy basis-rotation u2 gates.
 
-    Noise codes are PRESAMPLED in one PRNG call outside the scan (the
-    in-scan per-cycle threefry pattern measures ~1.5 s of pure deopt at
-    L=20/T=50 — docs/PERFORMANCE.md loop-invariance table) and drawn from
-    the SAME uniform stream as the lab-frame kernels
-    (ops.pallas_resident_general / ops.pallas_observables: uniform(key,
-    (T*K, L)) row-major), so engines compare trajectory-for-trajectory.
-    The eager Pauli application stays: <X_q> is measured every cycle, and
-    an off-diagonal observable cannot ride a deferred XOR frame with
-    pending phase corrections.
+    Noise codes are PRESAMPLED in one PRNG call outside the scan
+    (uniform(key, (T, K, L)) row-major, the same stream layout as the
+    sigma engine's presample). The eager Pauli application stays: <X_q>
+    is measured every cycle, and an off-diagonal observable cannot ride a
+    deferred XOR frame with pending phase corrections.
     """
     from dtc_tpu.core.sigma_evolve import _codes_from_uniform
 

@@ -1,16 +1,9 @@
 """Sigma-frame trajectory evolution — fully factored, mask-free noise.
 
-Profiling on the TPU chip (L=20, 32 trajectories, 50 cycles) showed three
-successive bottlenecks in trajectory noise, each ~30-80x the noiseless
-cycle cost:
-
-1. XOR-gather Pauli application (gathers lower terribly on TPU);
-2. per-cycle PRNG calls inside the scan;
-3. ANY per-cycle index-computed (2^L,)-sized mask (parity chains, diagonal
-   rebuilds) — the elementwise chain over the full amplitude array does not
-   stay fused and costs ~1.4s regardless of its exact form.
-
-This engine eliminates all three. Noise is presampled (one PRNG call per
+A noisy trajectory cycle done literally costs three passes that a noiseless
+cycle does not: an XOR-gather per sampled Pauli string, PRNG calls inside
+the scan, and a per-cycle index-computed (2^L,)-sized diagonal rebuild.
+This engine removes all three. Noise is presampled (one PRNG call per
 trajectory), the Pauli X-part is deferred into a carried XOR frame sigma
 (psi(s) = v(s XOR sigma)), and EVERY per-cycle diagonal is factored into
 per-qubit / per-bond unit factors that fold into the kick's kron-group
@@ -80,11 +73,13 @@ def _masks_from_codes(codes, L):
 
 def presample_noise(key, p, n_events, L):
     """One PRNG call -> per-event (xmask, zmask, sigma_before, sigma_csum)."""
-    u = jax.random.uniform(key, (n_events, L), dtype=jnp.float32)
-    codes = _codes_from_uniform(u, p)
-    xm, zm = _masks_from_codes(codes, L)
-    csum = jax.lax.associative_scan(jnp.bitwise_xor, xm)
-    sigma_before = jnp.concatenate([jnp.zeros((1,), jnp.uint32), csum[:-1]])
+    with jax.named_scope("noise"):
+        u = jax.random.uniform(key, (n_events, L), dtype=jnp.float32)
+        codes = _codes_from_uniform(u, p)
+        xm, zm = _masks_from_codes(codes, L)
+        csum = jax.lax.associative_scan(jnp.bitwise_xor, xm)
+        sigma_before = jnp.concatenate(
+            [jnp.zeros((1,), jnp.uint32), csum[:-1]])
     return xm, zm, sigma_before, csum
 
 
@@ -158,10 +153,11 @@ def _kick_factored(state, theta_x, theta_y, sigma, pend_zm, diag_sig, exp_h,
     factors folded into the kron-group columns; straddle bonds applied as
     (4,) broadcasts first."""
     starts = _group_starts(L, group)
-    for q0, k in starts[:-1]:
-        b = q0 + k - 1
-        if b < L - 1:
-            state = _straddle_factor(state, b, diag_sig, exp_p, L, dtype)
+    with jax.named_scope("diag"):
+        for q0, k in starts[:-1]:
+            b = q0 + k - 1
+            if b < L - 1:
+                state = _straddle_factor(state, b, diag_sig, exp_p, L, dtype)
     make = slot_unitary_inverse if inverse else slot_unitary
     if has_y:
         s = _sigma_signs(sigma, L, jnp.asarray(theta_y).dtype)
@@ -171,20 +167,22 @@ def _kick_factored(state, theta_x, theta_y, sigma, pend_zm, diag_sig, exp_h,
     total = state.shape[-1]
     shape = state.shape
     for q0, k in starts:
-        if has_y:
-            uk = us[q0 + k - 1]
-            for jq in range(k - 2, -1, -1):
-                uk = jnp.kron(uk, us[q0 + jq])
-        else:
-            uk = kron_power(u, k) if k > 1 else u
-        cols = _group_column_factors(q0, k, pend_zm, diag_sig, exp_h, exp_p,
-                                     L, dtype)
-        uk = uk * cols[None, :]
-        high = total >> (q0 + k)
-        low = 1 << q0
-        s2 = state.reshape(*shape[:-1], high, 1 << k, low)
-        s2 = jnp.einsum("ab,...hbl->...hal", uk, s2, precision=gate_precision())
-        state = s2.reshape(shape)
+        with jax.named_scope("kick"):
+            if has_y:
+                uk = us[q0 + k - 1]
+                for jq in range(k - 2, -1, -1):
+                    uk = jnp.kron(uk, us[q0 + jq])
+            else:
+                uk = kron_power(u, k) if k > 1 else u
+            cols = _group_column_factors(q0, k, pend_zm, diag_sig, exp_h,
+                                         exp_p, L, dtype)
+            uk = uk * cols[None, :]
+            high = total >> (q0 + k)
+            low = 1 << q0
+            s2 = state.reshape(*shape[:-1], high, 1 << k, low)
+            s2 = jnp.einsum("ab,...hbl->...hal", uk, s2,
+                            precision=gate_precision())
+            state = s2.reshape(shape)
     return state
 
 
@@ -203,14 +201,16 @@ def forward_cycle_fac(state, pending, ang, d0, exp_h, exp_p, ev, *, L, K, p,
             state = _kick_factored(state, ang[k, 0], ang[k, 1], jnp.uint32(0),
                                    jnp.uint32(0), jnp.uint32(0), exp_h, exp_p,
                                    L=L, dtype=dtype, has_y=False)
-        return state * d0, pending
+        with jax.named_scope("diag"):
+            return state * d0, pending
     zm, sig_b, sig_after = ev
     for k in range(K):
         state = _kick_factored(state, ang[k, 0], ang[k, 1], sig_b[k],
                                pend_zm, pend_sig, exp_h, exp_p,
                                L=L, dtype=dtype, has_y=has_y)
         pend_zm, pend_sig = zm[k], jnp.uint32(0)
-    state = state * d0
+    with jax.named_scope("diag"):
+        state = state * d0
     return state, (pend_zm, sig_after)
 
 
@@ -221,14 +221,16 @@ def inverse_cycle_fac(state, pending, ang, d0c, exp_hc, exp_pc, ev, *, L, K,
     slots each followed by a noise event."""
     pend_zm, pend_sig = pending
     if p <= 0.0:
-        state = state * d0c
+        with jax.named_scope("diag"):
+            state = state * d0c
         for k in range(K - 1, -1, -1):
             state = _kick_factored(state, ang[k, 0], ang[k, 1], jnp.uint32(0),
                                    jnp.uint32(0), jnp.uint32(0), exp_hc, exp_pc,
                                    L=L, dtype=dtype, has_y=False, inverse=True)
         return state, pending
     zm, sig_b, sig_after = ev
-    state = state * d0c
+    with jax.named_scope("diag"):
+        state = state * d0c
     # D0c's correction (at sig_b[0], the sigma when it was applied) rides the
     # FIRST inverse kick only, XOR-composed with any pending correction: at
     # the echo turnaround pend_sig (the last forward D0's deferred sigma)
@@ -257,8 +259,9 @@ def _measure_single_autocorr(state, sigma, zq_signs, q, s0, ancilla_factor,
     |v|^2; sigma contributes z_q(s^sigma) = (1-2 sigma_q) z_q(s)."""
     sq = (1 - 2 * ((sigma >> q) & jnp.uint32(1)).astype(jnp.int32)).astype(
         jnp.float32)
-    val = jnp.sum((jnp.real(state) ** 2 + jnp.imag(state) ** 2)
-                  * zq_signs.astype(jnp.float32))
+    with jax.named_scope("measure"):
+        val = jnp.sum((jnp.real(state) ** 2 + jnp.imag(state) ** 2)
+                      * zq_signs.astype(jnp.float32))
     return ancilla_factor * s0 * sq * val
 
 
@@ -272,7 +275,8 @@ def _measure_single_autocorr(state, sigma, zq_signs, q, s0, ancilla_factor,
                      "ancilla_factor", "has_y"),
 )
 def sigma_forward_batch(hs, phis, angles, keys, *, L, T, K, p, q,
-                        initial_state, dtype_name, ancilla_factor, has_y):
+                        initial_state, dtype_name, ancilla_factor,
+                        has_y=False):
     """(inst, L), (inst, L-1), (T,K,2), (inst, c, 2) -> (inst, c, T)."""
     from dtc_tpu.experiments.engine import resolve_dtype
 
@@ -327,7 +331,7 @@ def sigma_forward_batch(hs, phis, angles, keys, *, L, T, K, p, q,
                      "ancilla_factor", "has_y"),
 )
 def sigma_echo_batch(hs, phis, angles, keys, ts, *, L, T, K, p, q,
-                     initial_state, dtype_name, ancilla_factor, has_y):
+                     initial_state, dtype_name, ancilla_factor, has_y=False):
     """-> (inst, c, n_ts) echo values (masked fixed-length scan, presampled
     noise for all 2T potential events; inactive-step codes zeroed)."""
     from dtc_tpu.experiments.engine import resolve_dtype
@@ -351,17 +355,20 @@ def sigma_echo_batch(hs, phis, angles, keys, ts, *, L, T, K, p, q,
 
         def one(key, t_value):
             if p > 0.0:
-                u = jax.random.uniform(key, (2 * T, K, L), dtype=jnp.float32)
-                codes = _codes_from_uniform(u, p)
-                step = jnp.arange(2 * T)
-                active = (step < 2 * t_value)[:, None, None]
-                codes = jnp.where(active, codes, 0)
-                xm, zm = _masks_from_codes(codes, L)
-                flat = xm.reshape(-1)
-                csum = jax.lax.associative_scan(jnp.bitwise_xor, flat)
-                sig_b = jnp.concatenate(
-                    [jnp.zeros((1,), jnp.uint32), csum[:-1]]).reshape(2 * T, K)
-                sig_after = csum.reshape(2 * T, K)[:, -1]
+                with jax.named_scope("noise"):
+                    u = jax.random.uniform(key, (2 * T, K, L),
+                                           dtype=jnp.float32)
+                    codes = _codes_from_uniform(u, p)
+                    step = jnp.arange(2 * T)
+                    active = (step < 2 * t_value)[:, None, None]
+                    codes = jnp.where(active, codes, 0)
+                    xm, zm = _masks_from_codes(codes, L)
+                    flat = xm.reshape(-1)
+                    csum = jax.lax.associative_scan(jnp.bitwise_xor, flat)
+                    sig_b = jnp.concatenate(
+                        [jnp.zeros((1,), jnp.uint32), csum[:-1]]
+                    ).reshape(2 * T, K)
+                    sig_after = csum.reshape(2 * T, K)[:, -1]
             else:
                 zm = sig_b = jnp.zeros((2 * T, K), jnp.uint32)
                 sig_after = jnp.zeros((2 * T,), jnp.uint32)

@@ -2,8 +2,8 @@
 
 The reference's hardware runners are: build circuit -> transpile to a device
 -> submit (SamplerV2/EstimatorV2/IQM job) -> post-hoc decode raw job records
-(SURVEY.md §2b, §3.4). Cloud QPUs aren't reachable from a TPU pod, so the
-equivalent surface here is:
+(SURVEY.md §2b, §3.4). Cloud QPUs aren't reachable from the simulation host,
+so the equivalent surface here is:
 
 - SimulatorBackend: runs circuits on the dtc_tpu engines (counts or
   expectation), the AerSimulator analogue;

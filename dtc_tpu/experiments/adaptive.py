@@ -10,7 +10,7 @@ and ...-fast-controlled-g.py (SURVEY.md §3.3, C12-C14):
   re-run forward;
 - fixed-g comparison runs.
 
-TPU re-design: the reference re-simulates every circuit from t=0 (objective
+Re-design: the reference re-simulates every circuit from t=0 (objective
 eval = full 2(t+1)-cycle Aer run; O(inst*tf^2*evals) total,
 g-optimization.py:377-390). Here the causal forward state (a batch of noise
 trajectories) is CARRIED: one step advances it by a single cycle, and an echo
@@ -102,9 +102,8 @@ class AdaptiveStepper:
         self.noise = NoiseSpec(p=self.p)
         self.af = self.noise.ancilla_factor if self.p > 0 else 1.0
         self.n_traj = n_traj or (cfg.n_trajectories if self.p > 0 else 1)
-        # complex buffers must be DEVICE-created (this TPU backend lacks
-        # host<->device complex transfers): build via jit from real inputs,
-        # then pass between jitted programs as explicit arguments.
+        # complex buffers are built on the device via jit from real inputs,
+        # then passed between jitted programs as explicit arguments.
         L, dtype, n_tr = self.L, self.dtype, self.n_traj
         init_state, q = cfg.initial_state, self.q
 
@@ -214,18 +213,13 @@ class AdaptiveStepper:
 
 
 class KernelAdaptiveStepper:
-    """Schedule-sweep stepper on the whole-trajectory kernel batchers.
+    """Schedule-sweep stepper on the whole-trajectory batchers.
 
     Same public API as AdaptiveStepper, but `states` is just the number of
     applied cycles: every query re-evolves from t=0 through the accumulated
-    per-cycle g schedule via experiments.engine's _forward_batch/_echo_batch,
-    which dispatch to the per-cycle-schedule VMEM-resident Pallas kernels on
-    TPU (11.2k cycles/s forward, 15k masked steps/s echo with per-pair
-    dynamic trip counts at L=20 — docs/PERFORMANCE.md). Total work is
-    O(T^2) cycle applications like the reference's rebuild-per-step loop
-    (g-optimization.py:497-623), but each application runs ~30-80x faster
-    than the carried-state stepper's deopted in-scan path, which nets
-    >=5x end-to-end at L=20 (measured in benchmarks/adaptive_probe.py).
+    per-cycle g schedule via the sigma engine's whole-trajectory batchers.
+    Total work is O(T^2) cycle applications like the reference's
+    rebuild-per-step loop (g-optimization.py:497-623).
 
     Noise trajectories ride FIXED per-instance keys (common random numbers):
     every optimizer candidate g sees the same presampled Pauli strings, so
@@ -257,7 +251,7 @@ class KernelAdaptiveStepper:
             self.cfg.polarization, jnp.asarray(g_schedule), self.T + 1,
             circular_frequency=self.cfg.circular_frequency,
             xy_cycle_period=self.cfg.xy_cycle_period)
-        return np.asarray(sched.angles)  # concrete: kernel dispatch inspects
+        return np.asarray(sched.angles)
 
     # public API (AdaptiveStepper-compatible) ------------------------------
     def reset(self):
@@ -269,39 +263,28 @@ class KernelAdaptiveStepper:
         return states + 1
 
     def forward_value(self, states) -> float:
-        from dtc_tpu.experiments.engine import _forward_batch
+        from dtc_tpu.core.sigma_evolve import sigma_forward_batch
 
-        vals = _forward_batch(self._h, self._ph, self._angles(self._g),
+        vals = sigma_forward_batch(self._h, self._ph, self._angles(self._g),
                               self._keys_f, **self._kw)
         return float(jnp.mean(vals[0, :, states]))
 
     def echo_value(self, states_prev, g_schedule, g_last, t_next, key) -> float:
-        from dtc_tpu.experiments.engine import _echo_batch
+        from dtc_tpu.core.sigma_evolve import sigma_echo_batch
 
         g_full = np.array(self._g)
         g_full[: len(g_schedule)] = g_schedule
         g_full[t_next - 1] = g_last
-        vals = _echo_batch(self._h, self._ph, self._angles(g_full),
+        vals = sigma_echo_batch(self._h, self._ph, self._angles(g_full),
                            self._keys_e, jnp.asarray([t_next]), **self._kw)
         return float(jnp.mean(vals[0, :, 0]))
 
 
 def make_stepper(cfg, hs_row, phis_row, *, n_traj=None, key=None):
-    """Pick the stepper implementation for this config/platform.
-
-    DTC_TPU_ADAPTIVE=carried|kernel forces one; 'auto' takes the kernel
-    path whenever the resident kernels' dispatch window applies (TPU,
-    14 <= L <= 21, q < 14, complex64, T+1 <= 256 per-cycle schedule cap).
-    """
+    """Pick the stepper implementation: the carried-state AdaptiveStepper,
+    or the rerun KernelAdaptiveStepper when DTC_TPU_ADAPTIVE=kernel."""
     mode = os.environ.get("DTC_TPU_ADAPTIVE", "auto")
-    use_kernel = mode == "kernel" or (
-        mode == "auto"
-        and jax.default_backend() != "cpu"
-        and 14 <= cfg.L <= 21
-        and cfg.probe_qubit < 14
-        and cfg.dtype == "complex64"
-        and cfg.tf + 1 <= 256)
-    if use_kernel:
+    if mode == "kernel":
         return KernelAdaptiveStepper(cfg, hs_row, phis_row, n_traj=n_traj,
                                      key=key)
     return AdaptiveStepper(cfg, hs_row, phis_row, n_traj=n_traj)
@@ -532,7 +515,7 @@ def run_fixed_g(cfg, hs, phis, g_value=None) -> dict:
     instance) instead of T carried steps — the schedule is constant, so the
     O(T) scan covers every row at once.
     """
-    from dtc_tpu.experiments.engine import _echo_batch, _forward_batch
+    from dtc_tpu.core.sigma_evolve import sigma_echo_batch, sigma_forward_batch
 
     g = cfg.g if g_value is None else g_value
     T = cfg.tf
@@ -555,10 +538,10 @@ def run_fixed_g(cfg, hs, phis, g_value=None) -> dict:
         kf, ke = jax.random.split(jax.random.PRNGKey(cfg.seed + 977 * i))
         keys_f = jax.random.split(kf, n_traj)[None]
         keys_e = jax.random.split(ke, n_traj)[None]
-        f = guard("fixed_g_forward", _forward_batch(
+        f = guard("fixed_g_forward", sigma_forward_batch(
             h, ph, sched.angles, keys_f, **kw)).mean(axis=1)[0]
         fwd[i] = f[1:]  # row t = A(t+1)
-        e = guard("fixed_g_echo", _echo_batch(
+        e = guard("fixed_g_echo", sigma_echo_batch(
             h, ph, sched.angles, keys_e, jnp.arange(1, T + 1),
             **kw)).mean(axis=1)[0]
         ech[i] = e
@@ -578,7 +561,7 @@ def run_adaptive_batch(cfg, hs=None, phis=None, *, out_dir=None,
     af = noise.ancilla_factor if p > 0 else 1.0
     n_traj = cfg.n_trajectories if p > 0 else 1
     all_fwd, all_echo, all_g = [], [], []
-    from dtc_tpu.experiments.engine import _echo_batch, _forward_batch
+    from dtc_tpu.core.sigma_evolve import sigma_echo_batch, sigma_forward_batch
 
     def schedule_angles(schedule):
         # per-cycle x-kick angles (T, 1, 2): theta_x = pi * g_t
@@ -601,13 +584,13 @@ def run_adaptive_batch(cfg, hs=None, phis=None, *, out_dir=None,
         g0 = np.full(T, cfg.g)
         keys1 = jax.random.split(k1, n_traj)[None]
         echo_vals = np.asarray(
-            _echo_batch(h, ph, schedule_angles(g0), keys1,
+            sigma_echo_batch(h, ph, schedule_angles(g0), keys1,
                         jnp.arange(1, T + 1), **kw)).mean(axis=1)[0]
         adj = adjust_g_schedule(echo_vals, g0, cfg.target_echo,
                                 cfg.feedback_gain, cfg.g_min, cfg.g_max)
         keys2 = jax.random.split(k2, n_traj)[None]
         fwd_vals = np.asarray(
-            _forward_batch(h, ph, schedule_angles(adj), keys2,
+            sigma_forward_batch(h, ph, schedule_angles(adj), keys2,
                            **kw)).mean(axis=1)[0]
         all_fwd.append(fwd_vals)
         all_echo.append(echo_vals)

@@ -2,9 +2,6 @@
 
 from __future__ import annotations
 
-import functools
-import os
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -13,115 +10,6 @@ from dtc_tpu.core.device_evolve import device_autocorr_echo, device_autocorr_for
 from dtc_tpu.experiments.engine import _inst_keys, traj_chunks
 from dtc_tpu.models.device_noise import fake_device_model
 from dtc_tpu.utils.validation import guard
-
-
-# dense-gather support ceiling: the per-gate gather engine
-# (core.device_evolve.device_autocorr_forward/echo) crashes the TPU worker
-# above ~L=24 (docs/PERFORMANCE.md round-3 notes) — it is the LAST-RESORT
-# device-noise path for general (non-x / K>1) polarizations (the kernel
-# routes cover 14 <= L <= 23 and the (1,1)-mesh per-shard route 24 <= L
-# <= 30, split per-plane state at 30), so requests that would land on it
-# above the cliff must fail loudly instead of killing the worker
-# mid-sweep.
-_GATHER_MAX_L = 24
-
-
-def _guard_gather_path(cfg):
-    if cfg.L > _GATHER_MAX_L and jax.default_backend() != "cpu":
-        raise ValueError(
-            f"device-noise {cfg.polarization!r} polarization at L={cfg.L} "
-            f"would fall to the dense gather path, which crashes the TPU "
-            f"worker above L={_GATHER_MAX_L}. Supported: x-polarization "
-            f"(kernel/sigma engines) up to L=30; general polarizations up "
-            f"to L=30 via the lab-frame kernels (q < L, forward tf*K <= "
-            f"1024 / echo 2*tf*K <= 1024 — the echo rows carry a (pre, "
-            f"post) pair per step, halving the SMEM step budget; "
-            f"DTC_TPU_DEVICE_ENGINE=auto|kernel) — this request missed "
-            f"those constraints.")
-
-
-@functools.lru_cache(maxsize=8)
-def _device_general_hi_fn(echo, *, L, T, K, q, initial_state, af,
-                          p1_bytes, p2_bytes, epk):
-    """Cached (1,1)-mesh per-shard general builder with device rows — the
-    single-chip device-noise route for general polarizations past the
-    gather cliff, 24 <= L <= 30 (split per-plane state at 30;
-    parallel/sharded.py `device=`). Cached
-    like engine._singlechip_general_fn: rebuilding per sweep call would
-    retrace the shard_map scan (fresh jax.jit identity) and re-trigger the
-    hi general kernels' minutes-long Mosaic compiles on every repeated
-    sweep in one process; arrays enter the key as raw bytes."""
-    from dtc_tpu.parallel.mesh import make_mesh
-    from dtc_tpu.parallel.sharded import (
-        make_sharded_autocorr_forward_general,
-        make_sharded_echo_general,
-    )
-
-    mesh = make_mesh(n_amp=1, n_traj=1, devices=jax.devices()[:1])
-    maker = (make_sharded_echo_general if echo
-             else make_sharded_autocorr_forward_general)
-    return maker(
-        mesh, L=L, T=T, K=K, p=0.0, q=q,
-        initial_state=initial_state, ancilla_factor=af,
-        device=(np.frombuffer(p1_bytes, dtype=np.float64),
-                np.frombuffer(p2_bytes, dtype=np.float64), epk))
-
-
-def _device_general_hi_run(cfg, sched, p1, p2, af, echo):
-    return _device_general_hi_fn(
-        echo, L=cfg.L, T=cfg.tf, K=sched.K, q=cfg.probe_qubit,
-        initial_state=cfg.initial_state, af=float(af),
-        p1_bytes=np.ascontiguousarray(p1, dtype=np.float64).tobytes(),
-        p2_bytes=np.ascontiguousarray(p2, dtype=np.float64).tobytes(),
-        epk=2)
-
-
-def _device_general_hi_forward(cfg, sched, p1, p2, af, hs, phis, key):
-    fn = _device_general_hi_run(cfg, sched, p1, p2, af, echo=False)
-    hs_np = np.asarray(hs)
-    phis_np = np.asarray(phis)
-    n_traj = cfg.n_trajectories
-    # one trajectory's HBM-aliased state is 2^(L+3) bytes; keep ~4 GB live
-    chunk = max(1, (4 << 30) >> (cfg.L + 3))
-    out = np.zeros((cfg.inst, cfg.tf))
-    for i in range(cfg.inst):
-        h = jnp.asarray(hs_np[i, : cfg.L])
-        ph = jnp.asarray(phis_np[i, : cfg.L - 1])
-        acc = np.zeros(cfg.tf)
-        done = 0
-        while done < n_traj:
-            c = min(chunk, n_traj - done)
-            keys = _inst_keys(key, cfg.inst, done, c)[i]
-            vals = guard("device_general_hi_forward",
-                         np.asarray(fn(sched.angles, h, ph, keys)),
-                         bound=1.0)
-            acc += c * vals
-            done += c
-        out[i] = acc / n_traj
-    return guard("device_forward_sweep", out, bound=1.0)
-
-
-def _device_general_hi_echo(cfg, sched, p1, p2, af, hs, phis, key):
-    fn = _device_general_hi_run(cfg, sched, p1, p2, af, echo=True)
-    hs_np = np.asarray(hs)
-    phis_np = np.asarray(phis)
-    n_traj = cfg.n_trajectories
-    chunk = max(1, (4 << 30) >> (cfg.L + 3))
-    out = np.zeros((cfg.inst, cfg.tf))
-    for i in range(cfg.inst):
-        h = jnp.asarray(hs_np[i, : cfg.L])
-        ph = jnp.asarray(phis_np[i, : cfg.L - 1])
-        for t in range(cfg.tf):
-            acc = 0.0
-            done = 0
-            while done < n_traj:
-                c = min(chunk, n_traj - done)
-                keys = _inst_keys(key, cfg.inst, 7919 + done, c)[i]
-                acc += c * float(fn(sched.angles, h, ph, keys,
-                                    jnp.asarray(t)))
-                done += c
-            out[i, t] = acc / n_traj
-    return guard("device_echo_sweep", out, bound=1.0)
 
 
 def _model(cfg):
@@ -136,36 +24,8 @@ def device_forward_sweep(cfg, sched, params, key) -> np.ndarray:
     af = model.ancilla_interferometric_factor() * model.readout_z_factor(cfg.probe_qubit)
     p1 = jnp.asarray(model.p_1q)
     p2 = jnp.asarray(model.p_2q)
-    use_sigma = cfg.polarization == "x" and sched.K == 1
-    engine = os.environ.get("DTC_TPU_DEVICE_ENGINE", "auto")
-    if engine not in ("auto", "sigma", "kernel"):
-        raise ValueError(f"DTC_TPU_DEVICE_ENGINE={engine!r} "
-                         "(want auto|sigma|kernel)")
-    ang = np.asarray(sched.angles)
-    kernel_ok = (use_sigma and engine in ("auto", "kernel")
-                 and (cfg.probe_qubit < 14 if cfg.L <= 23
-                      else cfg.probe_qubit < cfg.L)
-                 and 17 <= cfg.L <= 30
-                 and cfg.tf <= 1024 and bool(np.all(ang[:, :, 1] == 0.0))
-                 and bool(np.all(ang == ang[0]))
-                 and jax.default_backend() != "cpu")
-    if engine == "kernel" and not kernel_ok:
-        raise ValueError(
-            "device kernel engine requires a constant x-only schedule, "
-            "q < 14 (L <= 23) / q < L (L >= 24), TPU backend and "
-            "17 <= L <= 30")
-    if kernel_ok:
-        # device rows on the blocked/streamed x kernels — the kernels run
-        # unchanged with per-class sigma checkpoints packed into the row
-        # (core.device_evolve.device_kernel_forward_batch)
-        from dtc_tpu.core.device_evolve import device_kernel_forward_batch
-
-        kw = dict(L=cfg.L, T=cfg.tf, q=cfg.probe_qubit,
-                  initial_state=cfg.initial_state, ancilla_factor=af)
-        run = lambda h, ph, keys: device_kernel_forward_batch(
-            h, ph, p1, p2, sched.angles, keys, **kw)
-    elif use_sigma:
-        # gather-free sigma-frame device engine (survives large L)
+    if cfg.polarization == "x" and sched.K == 1:
+        # gather-free sigma-frame device engine
         from dtc_tpu.core.device_evolve import device_sigma_forward_batch
 
         kw = dict(L=cfg.L, T=cfg.tf, q=cfg.probe_qubit,
@@ -173,31 +33,8 @@ def device_forward_sweep(cfg, sched, params, key) -> np.ndarray:
                   ancilla_factor=af)
         run = lambda h, ph, keys: device_sigma_forward_batch(
             h, ph, p1, p2, sched.angles, keys, **kw)
-    elif (engine in ("auto", "kernel") and 14 <= cfg.L <= 23
-          and cfg.probe_qubit < 14 and cfg.tf * sched.K <= 1024
-          and jax.default_backend() != "cpu"):
-        # GENERAL polarizations (y/xy/yx/circular, per-cycle g) at kernel
-        # rate: device events commute into the lab-frame kernels' post-kick
-        # Pauli hook with sign-adjusted bond angles; kernels run unchanged
-        # (core.device_evolve.device_general_kernel_forward_batch —
-        # previously these always took the dense gather path)
-        from dtc_tpu.core.device_evolve import (
-            device_general_kernel_forward_batch,
-        )
-
-        kw = dict(L=cfg.L, T=cfg.tf, K=sched.K, q=cfg.probe_qubit,
-                  initial_state=cfg.initial_state, ancilla_factor=af)
-        run = lambda h, ph, keys: device_general_kernel_forward_batch(
-            h, ph, p1, p2, sched.angles, keys, **kw)
-    elif (engine in ("auto", "kernel") and 24 <= cfg.L <= 30
-          and cfg.probe_qubit < cfg.L and cfg.tf * sched.K <= 1024
-          and jax.default_backend() != "cpu"):
-        # general polarizations PAST the gather cliff: (1,1)-mesh per-shard
-        # general kernels with device rows — previously a hard error
-        return _device_general_hi_forward(cfg, sched, p1, p2, af, hs, phis,
-                                          key)
     else:
-        _guard_gather_path(cfg)
+        # general drives (y/xy/yx/circular, K > 1): lab-frame gather engine
         kw = dict(L=cfg.L, T=cfg.tf, K=sched.K, q=cfg.probe_qubit,
                   initial_state=cfg.initial_state, dtype_name=cfg.dtype,
                   ancilla_factor=af)
@@ -229,14 +66,10 @@ def device_forward_sweep(cfg, sched, params, key) -> np.ndarray:
 
 
 def device_echo_sweep(cfg, sched, params, key, *, t_chunk: int = 4) -> np.ndarray:
-    """Device-noise echo A0(t) sweep. Engine dispatch (DTC_TPU_DEVICE_ENGINE
-    = auto|sigma|kernel, same contract as device_forward_sweep): constant
-    x-only schedules at 17 <= L <= 30 ride the UNCHANGED blocked/streamed/streamed-hi
-    echo kernels (core.device_evolve.device_kernel_echo_batch); other
-    x-only runs the gather-free sigma-frame engine (survives large L);
-    general polarizations ride the lab-frame kernels at 14 <= L <= 23,
-    the (1,1)-mesh per-shard device-rows route at 24 <= L <= 29, and the
-    dense gather path only below the cliff (L <= 24)."""
+    """Device-noise echo A0(t) sweep. Engine dispatch mirrors
+    device_forward_sweep: x-polarized K=1 drives run the gather-free
+    sigma-frame echo engine (core.device_evolve.device_sigma_echo_batch),
+    general drives the lab-frame gather engine (device_autocorr_echo)."""
     hs, phis = params
     model = _model(cfg)
     af = model.ancilla_interferometric_factor() * model.readout_z_factor(cfg.probe_qubit)
@@ -247,42 +80,17 @@ def device_echo_sweep(cfg, sched, params, key, *, t_chunk: int = 4) -> np.ndarra
     phis_j = jnp.asarray(np.asarray(phis)[:, : cfg.L - 1])
     out = np.zeros((cfg.inst, cfg.tf))
 
-    use_sigma = cfg.polarization == "x" and sched.K == 1
-    engine = os.environ.get("DTC_TPU_DEVICE_ENGINE", "auto")
-    if engine not in ("auto", "sigma", "kernel"):
-        raise ValueError(f"DTC_TPU_DEVICE_ENGINE={engine!r} "
-                         "(want auto|sigma|kernel)")
-    ang = np.asarray(sched.angles)
-    kernel_ok = (use_sigma and engine in ("auto", "kernel")
-                 and (cfg.probe_qubit < 14 if cfg.L <= 23
-                      else cfg.probe_qubit < cfg.L)
-                 and 17 <= cfg.L <= 30
-                 and cfg.tf <= 512 and bool(np.all(ang[:, :, 1] == 0.0))
-                 and bool(np.all(ang == ang[0]))
-                 and jax.default_backend() != "cpu")
-    if engine == "kernel" and not kernel_ok:
-        raise ValueError(
-            "device kernel echo engine requires a constant x-only schedule, "
-            "q < 14 (L <= 23) / q < L (L >= 24), TPU backend, "
-            "17 <= L <= 30 and tf <= 512")
+    if cfg.polarization == "x" and sched.K == 1:
+        from dtc_tpu.core.device_evolve import device_sigma_echo_batch
 
-    if kernel_ok or (use_sigma and engine in ("auto", "sigma")):
-        from dtc_tpu.core.device_evolve import (
-            device_kernel_echo_batch,
-            device_sigma_echo_batch,
-        )
-
-        batch = device_kernel_echo_batch if kernel_ok else (
-            lambda *a, **k: device_sigma_echo_batch(
-                *a, dtype_name=cfg.dtype, **k))
         kw = dict(L=cfg.L, T=cfg.tf, q=cfg.probe_qubit,
-                  initial_state=cfg.initial_state, ancilla_factor=af)
+                  initial_state=cfg.initial_state, dtype_name=cfg.dtype,
+                  ancilla_factor=af)
         run_v = jax.vmap(
-            lambda h, ph, keys, ts: batch(h, ph, p1, p2, sched.angles, keys,
-                                          ts, **kw),
+            lambda h, ph, keys, ts: device_sigma_echo_batch(
+                h, ph, p1, p2, sched.angles, keys, ts, **kw),
             in_axes=(0, 0, 0, None))
         ts_all = jnp.arange(cfg.tf)  # t=0 rows measure the init state (= af)
-        # per-pair kernel work scales with t; chunk trajectories only
         chunk = max(1, traj_chunks(n_traj, cfg.L,
                                    extra_factor=2 * cfg.inst * cfg.tf))
         done = 0
@@ -297,44 +105,6 @@ def device_echo_sweep(cfg, sched, params, key, *, t_chunk: int = 4) -> np.ndarra
             done += c
         return out / n_traj
 
-    if (engine in ("auto", "kernel") and 14 <= cfg.L <= 23
-            and cfg.probe_qubit < 14 and 2 * cfg.tf * sched.K <= 1024
-            and jax.default_backend() != "cpu"):
-        # general-polarization device ECHO at kernel rate (see the forward
-        # branch; device_general_kernel_echo_batch commutes the inverse
-        # cycles' bond events into the previous step's Pauli hook)
-        from dtc_tpu.core.device_evolve import device_general_kernel_echo_batch
-
-        kw = dict(L=cfg.L, T=cfg.tf, K=sched.K, q=cfg.probe_qubit,
-                  initial_state=cfg.initial_state, ancilla_factor=af)
-        run_v = jax.vmap(
-            lambda h, ph, keys, ts: device_general_kernel_echo_batch(
-                h, ph, p1, p2, sched.angles, keys, ts, **kw),
-            in_axes=(0, 0, 0, None))
-        ts_all = jnp.arange(cfg.tf)
-        chunk = max(1, traj_chunks(n_traj, cfg.L,
-                                   extra_factor=2 * cfg.inst * cfg.tf))
-        done = 0
-        while done < n_traj:
-            c = min(chunk, n_traj - done)
-            keys = _inst_keys(key, cfg.inst, 7919 + done, c)
-            out += guard(
-                "device_echo_sweep_general",
-                np.asarray(jnp.sum(run_v(hs_j, phis_j, keys, ts_all),
-                                   axis=1)),
-                bound=float(c))
-            done += c
-        return out / n_traj
-
-    if (engine in ("auto", "kernel") and 24 <= cfg.L <= 30
-            and cfg.probe_qubit < cfg.L and 2 * cfg.tf * sched.K <= 1024
-            and jax.default_backend() != "cpu"):
-        # general-polarization device ECHO past the gather cliff (see the
-        # forward branch) — previously a hard error
-        return _device_general_hi_echo(cfg, sched, p1, p2, af, hs, phis,
-                                       key)
-
-    _guard_gather_path(cfg)
     kw = dict(L=cfg.L, T=cfg.tf, K=sched.K, q=cfg.probe_qubit,
               initial_state=cfg.initial_state, dtype_name=cfg.dtype,
               ancilla_factor=af)

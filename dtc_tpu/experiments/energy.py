@@ -75,65 +75,9 @@ def _observables_batch(hs, phis, term_hs, term_phis, x_coeff, angles, keys, *,
     return jax.vmap(per_instance)(hs, phis, term_hs, term_phis, keys)
 
 
-def _energy_kernel_ok(cfg, sched, engine) -> bool:
-    """Observable-KERNEL dispatch predicate (DTC_TPU_ENERGY_ENGINE=
-    auto|xla|kernel): the blocked lab-frame observables kernel
-    (ops.pallas_observables) covers 17 <= L <= 23, any polarization
-    family / per-cycle schedule, tf*K <= 1024 SMEM step rows, on TPU."""
-    if engine not in ("auto", "xla", "kernel"):
-        raise ValueError(f"DTC_TPU_ENERGY_ENGINE={engine!r} "
-                         "(want auto|xla|kernel)")
-    return (engine in ("auto", "kernel") and 17 <= cfg.L <= 23
-            and cfg.tf * sched.K <= 1024
-            and jax.default_backend() != "cpu")
-
-
-def _guard_energy_xla(cfg, engine="auto"):
-    """The eager-noise XLA observables program at L >= 24 OOMs or crashes
-    the TPU worker like the sigma echo programs do (docs/PERFORMANCE.md
-    sigma-OOM notes: ~20 x 512 MB remat temps at L=27) — fail loudly
-    before any compute instead (the autocorr engines' _guard_gather_path
-    discipline, VERDICT r4 weak #3).
-
-    Separately, at 17 <= L <= 23 this backend MIS-EVALUATES the eager
-    route's noisy transverse terms: measured max|dE| = 3.5 vs the exact
-    CPU engine at L=20/T=20/p=0.1 while every <Z_q> stays at 4e-6 —
-    identical trajectories, correct probabilities, corrupted phases; the
-    observables KERNEL on the same workload sits at 2.4e-3 vs CPU
-    (benchmarks/energy_l20_anchor.py, round-5 PERFORMANCE.md notes). The
-    L <= 16 route is clean (1e-5 at L=8/12/16). Auto dispatch therefore
-    refuses the XLA fallback at 17 <= L <= 23 on TPU; an explicit
-    DTC_TPU_ENERGY_ENGINE=xla still runs it (rate probes), owning the
-    known-bad X terms."""
-    if cfg.L >= 24 and jax.default_backend() != "cpu":
-        raise ValueError(
-            f"energy/per-qubit-Z sweep at L={cfg.L} would build the "
-            f"eager-noise XLA observables program, which OOMs/crashes the "
-            f"TPU worker at L >= 24. Supported: L <= 23 (the blocked "
-            f"observables kernel covers 17 <= L <= 23 at tf*K <= 1024, "
-            f"DTC_TPU_ENERGY_ENGINE=auto|kernel).")
-    if (engine == "auto" and 17 <= cfg.L <= 23
-            and jax.default_backend() != "cpu"):
-        raise ValueError(
-            f"energy sweep at L={cfg.L} missed the observables kernel's "
-            f"bounds (tf*K <= 1024) and would fall to the eager XLA "
-            f"route, whose noisy transverse terms this TPU backend "
-            f"mis-evaluates at 17 <= L <= 23 (measured |dE| ~ 3.5 vs the "
-            f"exact CPU engine at L=20 with exact <Z_q> — see "
-            f"_guard_energy_xla). Shorten the schedule, or set "
-            f"DTC_TPU_ENERGY_ENGINE=xla to accept the known-bad X "
-            f"terms.")
-
-
 def _energy_single_noise(cfg, hs, phis, p, component="full"):
-    """(inst, T) energies and (inst, T, L) per-qubit Z, trajectory-averaged.
-
-    Engine dispatch: TPU runs at 17 <= L <= 23 ride the whole-trajectory
-    blocked observables kernel (ops.pallas_observables — lab-frame
-    evolution + in-kernel marginal/adjacency measurement); everything else
-    the presampled XLA scan (core.evolve.evolve_observables), guarded at
-    L >= 24. Both engines draw the same per-trajectory uniform stream, so
-    switching engines keeps the trajectory ensemble."""
+    """(inst, T) energies and (inst, T, L) per-qubit Z, trajectory-averaged,
+    on the presampled XLA scan (core.evolve.evolve_observables)."""
     cfgp = cfg.replace(noise_prob=p, use_noise=1 if p > 0 else 0)
     sched, (hs_j, phis_j), noise = build_context(cfgp, hs, phis)
 
@@ -147,15 +91,6 @@ def _energy_single_noise(cfg, hs, phis, p, component="full"):
         for i in range(cfg.inst)])
     x_coeff = jnp.asarray(float(terms0.x_coeff))
 
-    engine = os.environ.get("DTC_TPU_ENERGY_ENGINE", "auto")
-    kernel_ok = _energy_kernel_ok(cfg, sched, engine)
-    if engine == "kernel" and not kernel_ok:
-        raise ValueError(
-            "energy kernel engine requires a TPU backend, 17 <= L <= 23 "
-            "and tf*K <= 1024")
-    if not kernel_ok:
-        _guard_energy_xla(cfg, engine)
-
     n_traj = cfg.n_trajectories if noise.p > 0 else 1
     chunk = traj_chunks(n_traj, cfg.L, extra_factor=cfg.inst)
     ki = jax.random.split(jax.random.PRNGKey(cfg.seed), cfg.inst)
@@ -165,22 +100,11 @@ def _energy_single_noise(cfg, hs, phis, p, component="full"):
     while done < n_traj:
         c = min(chunk, n_traj - done)
         keys = jnp.stack([jax.random.split(jax.random.fold_in(k, done), c) for k in ki])
-        if kernel_ok:
-            from dtc_tpu.ops.pallas_observables import (
-                observables_forward_batch,
-            )
-
-            e_d, x_s, zs = observables_forward_batch(
-                hs_j, phis_j, term_hs, term_phis, sched.angles, keys,
-                L=cfg.L, T=cfg.tf, K=sched.K, p=noise.p,
-                initial_state=cfg.initial_state, with_x=with_x)
-            e = e_d + x_coeff * x_s if with_x else e_d
-        else:
-            e, zs = _observables_batch(
-                hs_j, phis_j, term_hs, term_phis, x_coeff, sched.angles,
-                keys, L=cfg.L, T=cfg.tf, K=sched.K, p=noise.p,
-                with_x=with_x, initial_state=cfg.initial_state,
-                dtype_name=cfg.dtype)
+        e, zs = _observables_batch(
+            hs_j, phis_j, term_hs, term_phis, x_coeff, sched.angles,
+            keys, L=cfg.L, T=cfg.tf, K=sched.K, p=noise.p,
+            with_x=with_x, initial_state=cfg.initial_state,
+            dtype_name=cfg.dtype)
         acc_e += guard("energy_batch", jnp.sum(e, axis=1))
         acc_z += guard("perqubit_z_batch", jnp.sum(zs, axis=1), bound=float(c))
         done += c
@@ -193,7 +117,7 @@ def run_energy(cfg, hs=None, phis=None, *, nprobs=DEFAULT_NPROBS, component="ful
     """E(t)/L per noise probability; CSV `time, energy_p_{p}`.
 
     checkpoint_path: crash-safe journal — each completed noise level is
-    persisted and skipped on resume (the TPU analogue of the reference's
+    persisted and skipped on resume (the counterpart of the reference's
     append-per-timestep hardware checkpointing, SURVEY.md §5)."""
     if hs is None or phis is None:
         hs, phis = get_disorder(cfg, disorder_dir)

@@ -5,26 +5,19 @@ Replaces the reference's serial python loops over disorder instances and time
 points (autocorr-delta-a-single-qiskit-fast.py:217-239, O(inst*tf^2) rebuilt
 circuits) with vmap axes over (instance, trajectory) around O(T) scans.
 
-TPU boundary rule: this backend supports complex math on-device but not
-host<->device complex transfers, so every jitted entry point here takes ONLY
-real arrays (hs, phis, kick angles, PRNG keys) and builds the complex
-statevector, phase masks, and observables inside the traced program — which
-also avoids ever materializing 2**L amplitudes on the host.
+Every jitted entry point here takes real arrays (hs, phis, kick angles, PRNG
+keys) and builds the complex statevector, phase masks and observables inside
+the traced program, so 2**L amplitudes never exist on the host.
 """
 
 from __future__ import annotations
-
-import functools
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from dtc_tpu.core.evolve import autocorr_echo, autocorr_forward
-from dtc_tpu.core.statevector import initial_statevector
 from dtc_tpu.models.drives import build_kick_schedule
 from dtc_tpu.models.noise import NoiseSpec
-from dtc_tpu.ops.diag import zz_z_phase_mask
 from dtc_tpu.utils.validation import guard
 
 
@@ -42,48 +35,6 @@ def traj_chunks(n_traj: int, L: int, extra_factor: int = 2,
     return max(1, min(n_traj, budget_bytes // max(1, bytes_per_traj)))
 
 
-def _kernel_dispatch_likely(cfg, sched, *, echo: bool) -> bool:
-    """Whether this sweep's _forward_batch/_echo_batch call will land on a
-    whole-trajectory Pallas kernel. Kernel paths keep the state in
-    VMEM/HBM-scratch PER GRID STEP — their HBM residency is the compact
-    parameter rows, not inst x traj live statevectors — so the sweeps
-    chunk them by trajectory count alone instead of the XLA engines'
-    state-bytes budget (measured: the old 2 GB/state-bytes chunking cut
-    L=20 echo-sweep dispatches into ~15-trajectory slivers, ~8x
-    dispatch-bound on the real chip)."""
-    import os
-
-    engine = os.environ.get("DTC_TPU_ENGINE", "auto")
-    kw = dict(K=sched.K, L=cfg.L, q=cfg.probe_qubit, T=cfg.tf,
-              dtype_name=cfg.dtype, engine=engine)
-    fast, ti = _resident_dispatch(sched.angles, has_y=cfg.polarization != "x",
-                                  max_L=23, **kw)
-    if fast and (ti or cfg.L <= 21):
-        # mirror _echo_batch exactly: at 22 <= L <= 23 the only fast echo
-        # path is the blocked echo kernel, which additionally needs
-        # T <= 512 — over-claiming here would kernel-size the chunks for
-        # what is really the XLA sigma engine and blow the HBM budget
-        if not echo or cfg.L <= 21 or cfg.tf <= 512:
-            return True
-    if _general_dispatch(sched.angles, max_steps=512 if echo else 1024,
-                         max_L=23, **kw):
-        return True
-    # streamed (22..28) / streamed-hi (29..30, or explicit) constant-x
-    # kernels — the hi branch makes L=29/30 sweeps chunk by trajectory
-    # count like every other kernel route instead of the XLA state-bytes
-    # budget (which would sliver them to 1 trajectory per dispatch)
-    ang = np.asarray(sched.angles)
-    return (sched.K == 1 and 22 <= cfg.L <= 30
-            and cfg.probe_qubit < cfg.L
-            and cfg.dtype == "complex64"
-            and cfg.tf <= (512 if echo else 1024)
-            and bool(np.all(ang[:, :, 1] == 0.0))
-            and bool(np.all(ang == ang[0]))
-            and engine in ("auto", "resident", "streamed", "blocked",
-                           "streamed_hi")
-            and jax.default_backend() != "cpu")
-
-
 def build_context(cfg, hs, phis):
     """Per-run precomputation: kick schedule + real parameter arrays."""
     sched = build_kick_schedule(
@@ -97,377 +48,15 @@ def build_context(cfg, hs, phis):
     return sched, (hs, phis), noise
 
 
-def _forward_batch(hs, phis, angles, keys, *, L, T, K, p, q, initial_state,
-                   dtype_name, ancilla_factor, has_y=False):
-    """(inst, L), (inst, L-1), (T,K,2), (inst, c, 2) -> (inst, c, T).
-
-    Dispatch: time-independent x-polarized drives take the planar-real
-    Pallas fast path (core.planar_evolve); everything else the factored
-    sigma-frame complex engine (core.sigma_evolve).
-    """
-    import os
-
-    engine = os.environ.get("DTC_TPU_ENGINE", "auto")
-    # schedule-constancy is a host-side dispatch decision: when angles are a
-    # tracer (caller jitted around us), fall back to the general engine
-    fast_ok, time_independent = _resident_dispatch(
-        angles, has_y=has_y, K=K, L=L, q=q, T=T, dtype_name=dtype_name,
-        engine=engine, max_L=23)
-    if (fast_ok and time_independent and 18 <= L and engine != "streamed"):
-        # blocked-plane VMEM-resident kernel — the DEFAULT for constant
-        # x-schedules at 18 <= L <= 23. Built to get past the full-plane
-        # body's ~102 MB register spill at L=22, the bounded-live-set
-        # fori_loop body also schedules BETTER at the full-plane kernel's
-        # own sizes: measured fwd/echo vs the full-plane resident kernel
-        # (benchmarks/blocked_lowL_probe.py medians) 1.43x/1.28x at L=21,
-        # 1.34x/1.25x at L=20 (15.8k traj-cyc/s — the headline bench),
-        # 1.14x/1.20x at L=19, 1.10x/1.15x at L=18 (crossover: 0.95x/1.04x
-        # at L=17), and vs the streamed kernel 3.5x at L=22 (VMEM residency
-        # beats even the streamed DMA roofline of ~2440); parity ~1e-6 vs
-        # the full-plane kernel / 9e-5 vs sigma. Per-cycle x schedules stay
-        # on the full-plane resident kernel below (its (T,128,128) matrix
-        # block is VMEM-budgeted at L <= 21; at 22..23 they route to the
-        # blocked GENERAL kernel's in-kernel-built matrices).
-        # engine='streamed' still names the HBM-streamed kernel explicitly.
-        from dtc_tpu.ops.pallas_resident_blocked import blocked_forward_batch
-
-        return blocked_forward_batch(
-            hs, phis, angles, keys, L=L, T=T, p=p, q=q,
-            initial_state=initial_state, ancilla_factor=ancilla_factor)
-
-    if fast_ok and L <= 21:
-        # full-plane VMEM-resident whole-trajectory kernel: constant x at
-        # 14 <= L <= 17 (the full-plane body still wins at L=17 — 0.95x —
-        # and the blocked kernel's TOP >= 8 floor is L=17 anyway) and
-        # per-cycle x-only schedules (adaptive-g) at L <= 21 via
-        # (T,128,128) per-cycle kick matrices. Values match the sigma
-        # engine to the bf16x3 dot level (<=1.8e-4), far under trajectory
-        # sampling noise.
-        from dtc_tpu.ops.pallas_resident import resident_forward_batch
-
-        return resident_forward_batch(
-            hs, phis, angles, keys, L=L, T=T, p=p, q=q,
-            initial_state=initial_state, ancilla_factor=ancilla_factor,
-            time_dependent=not time_independent)
-
-    if (time_independent and 22 <= L <= 28 and q < L
-            and dtype_name == "complex64" and T <= 1024
-            and engine in ("auto", "resident", "streamed", "blocked")
-            and jax.default_backend() != "cpu"):
-        # HBM-streamed whole-trajectory kernel: past the VMEM limit the
-        # state lives in HBM and each cycle makes two double-buffered DMA
-        # sweeps (ops/pallas_streamed; matches the sigma engine to the
-        # bf16x3 level with identical presampled trajectories)
-        from dtc_tpu.ops.pallas_streamed import streamed_forward_batch
-
-        return streamed_forward_batch(
-            hs, phis, angles, keys, L=L, T=T, p=p, q=q,
-            initial_state=initial_state, ancilla_factor=ancilla_factor)
-
-    if (time_independent and 22 <= L <= 30 and q < L
-            and dtype_name == "complex64" and T <= 1024
-            and (29 <= L or engine == "streamed_hi")
-            and engine in ("auto", "resident", "streamed", "blocked",
-                           "streamed_hi")
-            and jax.default_backend() != "cpu"):
-        # r2-blocked HBM-streamed kernel: the single-chip L=29/30 engine
-        # (bounded slab sizes — ops/pallas_streamed_hi; the original
-        # streamed kernel's pass-B slab grows past VMEM at L >= 29).
-        # engine='streamed_hi' selects it explicitly at 22 <= L <= 28 for
-        # cross-checks.
-        from dtc_tpu.ops.pallas_streamed_hi import streamed_hi_forward_batch
-
-        return streamed_hi_forward_batch(
-            hs, phis, angles, keys, L=L, T=T, p=p, q=q,
-            initial_state=initial_state, ancilla_factor=ancilla_factor)
-
-    if _general_dispatch(angles, K=K, L=L, q=q, T=T, dtype_name=dtype_name,
-                         engine=engine, max_steps=1024, max_L=23):
-        # lab-frame general resident kernel: any polarization family / K
-        # slots / per-cycle schedule (y 12.3k, xy/circular 7.1k cycles/s at
-        # L=20 vs the sigma engine's 2.0k/1.3k; matches it to ~3e-4 — the
-        # bf16x3 dot level — with identical presampled trajectories).
-        # 18 <= L <= 23 run the blocked-plane variant (measured y at L=22:
-        # 3405 traj-cyc/s vs sigma 364, parity 1.0e-4; vs the full-plane
-        # body 1.17-1.24x at L=20..21 — general_blocked_probe.py)
-        from dtc_tpu.ops.pallas_resident_general import general_forward_batch
-
-        return general_forward_batch(
-            hs, phis, angles, keys, L=L, T=T, K=K, p=p, q=q,
-            initial_state=initial_state, ancilla_factor=ancilla_factor)
-
-    if (engine == "planar" and time_independent):
-        # Experimental planar-real + Pallas noise-factor path. Currently
-        # ~1.8k cycles/s at L=20 vs the factored sigma engine's ~2.0k (both
-        # far above the noiseless fast path's 38k; see sigma_evolve notes on
-        # the loop-invariance deopt this backend imposes on noisy bodies).
-        from dtc_tpu.core.planar_evolve import planar_forward_batch
-
-        return planar_forward_batch(
-            hs, phis, angles, keys, L=L, T=T, p=p, q=q,
-            initial_state=initial_state, dtype_name=dtype_name,
-            ancilla_factor=ancilla_factor,
-            interpret=jax.default_backend() == "cpu")
-
-    from dtc_tpu.core.sigma_evolve import sigma_forward_batch
-
-    return sigma_forward_batch(
-        hs, phis, angles, keys, L=L, T=T, K=K, p=p, q=q,
-        initial_state=initial_state, dtype_name=dtype_name,
-        ancilla_factor=ancilla_factor, has_y=has_y)
-
-
-def _resident_dispatch(angles, *, has_y, K, L, q, T, dtype_name, engine,
-                       max_L=21):
-    """(resident_ok, time_independent): whether the VMEM-resident kernels
-    apply, and whether the x-only schedule is constant (constant schedules
-    share one kick matrix; per-cycle ones carry T of them — cap T to keep
-    the matrix block in VMEM). Both kernels take 14 <= L <= 21 (16 MB
-    state at L=21; the diagonal-fold removed the full-plane phase
-    temporaries that had kept echo at L <= 20)."""
-    if isinstance(angles, jax.core.Tracer) or has_y or K != 1:
-        return False, False
-    ang_np = np.asarray(angles)
-    x_only = bool(np.all(ang_np[:, :, 1] == 0.0))
-    time_independent = x_only and bool(np.all(ang_np == ang_np[0]))
-    # 'streamed' names the fast-kernel family too: at L <= 21 the resident
-    # kernel IS that family's member, so an explicit request must not
-    # silently fall to the sigma engine (ADVICE r1)
-    ok = (engine in ("auto", "resident", "streamed", "blocked") and x_only
-          and 14 <= L <= max_L and q < 14 and dtype_name == "complex64"
-          and (time_independent or T <= 256)
-          and jax.default_backend() != "cpu")
-    return ok, time_independent
-
-
-def _general_dispatch(angles, *, K, L, q, T, dtype_name, engine, max_L=21,
-                      max_steps=1024):
-    """Whether the lab-frame general resident kernel applies (any
-    polarization/K/schedule). Compact (128,) step rows ride in SMEM, so
-    the forward kernel takes T*K <= 1024 kick slots (measurement-slot
-    limit) and the echo kernel 2*T*K <= 1024 (max_steps=512)."""
-    if isinstance(angles, jax.core.Tracer):
-        return False
-    return (engine in ("auto", "resident", "general", "streamed", "blocked")
-            and 14 <= L <= max_L and q < 14 and dtype_name == "complex64"
-            and T * K <= max_steps and jax.default_backend() != "cpu")
-
-
-def _singlechip_general_hi_ok(cfg, sched) -> bool:
-    """Single-chip GENERAL-drive kernel dispatch for 24 <= L <= 29.
-
-    Non-x polarizations and per-cycle schedules past the blocked general
-    kernels' L=23 used to fall to the XLA sigma engine; the (1,1)-mesh
-    degenerate run of the sharded general cycle-kernel scan (per-shard
-    VMEM/hi kernels with NO shard bits, so no collectives and no global
-    tail) runs the same workload at kernel rate — measured 4.2x the XLA
-    sharded engine at L=24 (parity_results.json sharded_general_hi_l24_y)
-    and covers the reference's circular/time-dependent drives at large L
-    (autocorr-delta-a-single-qiskit-fast-circular-polarization.py:110-142).
-    Constant x-schedules are excluded: the whole-trajectory streamed /
-    streamed-hi kernels are faster there."""
-    import os
-
-    engine = os.environ.get("DTC_TPU_ENGINE", "auto")
-    if engine not in ("auto", "sharded_general"):
-        return False
-    if jax.default_backend() == "cpu" or cfg.dtype != "complex64":
-        return False
-    if not (24 <= cfg.L <= 29 and 0 <= cfg.probe_qubit < cfg.L):
-        return False
-    ang = np.asarray(sched.angles)
-    const_x = (sched.K == 1 and bool(np.all(ang[:, :, 1] == 0.0))
-               and bool(np.all(ang == ang[0])))
-    return not const_x
-
-
-@functools.lru_cache(maxsize=8)
-def _singlechip_general_fn(echo, **kw):
-    """Cached (1,1)-mesh sharded-general builder: rebuilding per sweep call
-    would make every repeated sweep retrace the shard_map scan (a fresh
-    jax.jit identity) — seconds of host work per call."""
-    from dtc_tpu.parallel.mesh import make_mesh
-    from dtc_tpu.parallel.sharded import (
-        make_sharded_autocorr_forward_general,
-        make_sharded_echo_general,
-    )
-
-    mesh = make_mesh(n_amp=1, n_traj=1, devices=jax.devices()[:1])
-    maker = (make_sharded_echo_general if echo
-             else make_sharded_autocorr_forward_general)
-    return maker(mesh, **kw)
-
-
-def _singlechip_general_forward(cfg, sched, params, noise, key, *,
-                                interpret=False):
-    """forward_sweep via the (1,1)-mesh sharded GENERAL builder (see
-    _singlechip_general_hi_ok). Returns (inst, T) trajectory averages;
-    same uniform draws per trajectory key as the sigma engine."""
-    hs, phis = params
-    af = noise.ancilla_factor if noise.p > 0 else 1.0
-    fn = _singlechip_general_fn(
-        False, L=cfg.L, T=cfg.tf, K=sched.K, p=noise.p, q=cfg.probe_qubit,
-        initial_state=cfg.initial_state, ancilla_factor=af,
-        interpret=interpret)
-    n_traj = cfg.n_trajectories if noise.p > 0 else 1
-    # one trajectory's HBM-aliased state is 2^(L+3) bytes; keep ~4 GB live
-    chunk = max(1, (4 << 30) >> (cfg.L + 3))
-    out = np.zeros((cfg.inst, cfg.tf))
-    for i in range(cfg.inst):
-        acc = np.zeros(cfg.tf)
-        done = 0
-        while done < n_traj:
-            c = min(chunk, n_traj - done)
-            keys = _inst_keys(key, cfg.inst, done, c)[i]
-            vals = guard("singlechip_general_forward",
-                         fn(sched.angles, hs[i], phis[i], keys), bound=1.0)
-            acc += c * vals
-            done += c
-        out[i] = acc / n_traj
-    return guard("forward_sweep", out, bound=1.0)
-
-
-def _singlechip_general_echo(cfg, sched, params, noise, key, *,
-                             interpret=False):
-    """echo_sweep via the (1,1)-mesh sharded GENERAL echo builder (one
-    masked-2T switch scan per t value; per-shard inverse kernels)."""
-    hs, phis = params
-    fn = _singlechip_general_fn(
-        True, L=cfg.L, T=cfg.tf, K=sched.K, p=noise.p, q=cfg.probe_qubit,
-        initial_state=cfg.initial_state,
-        ancilla_factor=noise.ancilla_factor, interpret=interpret)
-    n_traj = cfg.n_trajectories
-    chunk = max(1, (4 << 30) >> (cfg.L + 3))
-    out = np.zeros((cfg.inst, cfg.tf))
-    for i in range(cfg.inst):
-        for t in range(cfg.tf):
-            acc = 0.0
-            done = 0
-            while done < n_traj:
-                c = min(chunk, n_traj - done)
-                keys = _inst_keys(key, cfg.inst, 7919 + done, c)[i]
-                val = float(fn(sched.angles, hs[i], phis[i], keys,
-                               jnp.asarray(t)))
-                acc += c * val
-                done += c
-            out[i, t] = acc / n_traj
-    return guard("echo_sweep", out, bound=1.0)
-
-
-def _echo_batch(hs, phis, angles, keys, ts, *, L, T, K, p, q, initial_state,
-                dtype_name, ancilla_factor, has_y=False):
-    """-> (inst, c, n_ts) echo values (sigma-frame).
-
-    Dispatch mirrors _forward_batch: x-only drives at 14 <= L <= 21 take
-    the VMEM-resident Pallas echo kernel (measured 14x the sigma engine at
-    L=20 — 15.1k masked steps/s; identical presampled trajectories),
-    including per-cycle g schedules (adaptive-g workloads)."""
-    import os
-
-    engine = os.environ.get("DTC_TPU_ENGINE", "auto")
-    fast_ok, time_independent = _resident_dispatch(
-        angles, has_y=has_y, K=K, L=L, q=q, T=T, dtype_name=dtype_name,
-        engine=engine, max_L=23)
-    if (fast_ok and time_independent and 18 <= L and T <= 512
-            and engine != "streamed"):
-        # blocked-plane VMEM-resident echo, constant x-schedules — the
-        # DEFAULT at 18 <= L <= 23 (measured sweeps vs the full-plane
-        # resident echo 1.28x at L=21, 1.25x at L=20, 1.20x at L=19,
-        # 1.15x at L=18, ~tie at L=17, parity ~1e-6 —
-        # blocked_lowL_probe.py; vs the streamed echo 4.0x at L=22, parity
-        # 1.2e-4). Per-cycle x routes to the full-plane / blocked general
-        # kernels below — see _forward_batch.
-        from dtc_tpu.ops.pallas_resident_blocked import blocked_echo_batch
-
-        return blocked_echo_batch(
-            hs, phis, angles, keys, ts, L=L, T=T, p=p, q=q,
-            initial_state=initial_state, ancilla_factor=ancilla_factor)
-
-    if fast_ok and L <= 21:
-        from dtc_tpu.ops.pallas_resident import resident_echo_batch
-
-        return resident_echo_batch(
-            hs, phis, angles, keys, ts, L=L, T=T, p=p, q=q,
-            initial_state=initial_state, ancilla_factor=ancilla_factor,
-            time_dependent=not time_independent)
-
-    if _general_dispatch(angles, K=K, L=L, q=q, T=T, dtype_name=dtype_name,
-                         engine=engine, max_steps=512, max_L=23):
-        # 18 <= L <= 23 run the blocked-plane variant (measured y echo at
-        # L=22: 3974 active steps/s vs the deopted sigma fallback, parity
-        # 6.5e-5; vs the full-plane body 1.15-1.29x at L=18..21 —
-        # general_blocked_probe.py)
-        from dtc_tpu.ops.pallas_resident_general import general_echo_batch
-
-        return general_echo_batch(
-            hs, phis, angles, keys, ts, L=L, T=T, K=K, p=p, q=q,
-            initial_state=initial_state, ancilla_factor=ancilla_factor)
-
-    streamed_ok = (
-        not isinstance(angles, jax.core.Tracer) and not has_y and K == 1
-        and 22 <= L <= 28 and q < L and dtype_name == "complex64"
-        # 'resident' names the fast-kernel family too (mirror
-        # _forward_batch: an explicit fast-family request must not
-        # silently fall to the deopted sigma engine)
-        and T <= 512 and engine in ("auto", "resident", "streamed", "blocked")
-        and jax.default_backend() != "cpu")
-    if streamed_ok:
-        ang_np = np.asarray(angles)
-        streamed_ok = bool(np.all(ang_np[:, :, 1] == 0.0)) and bool(
-            np.all(ang_np == ang_np[0]))
-    if streamed_ok:
-        # HBM-streamed echo kernel: per-(trajectory, t) dynamic trip counts
-        # over the forward kernel's double-buffered DMA sweeps — replaces
-        # the deopted sigma fallback that made every L >= 22 forward+echo
-        # study echo-bound (VERDICT r1 weak #2)
-        from dtc_tpu.ops.pallas_streamed import streamed_echo_batch
-
-        return streamed_echo_batch(
-            hs, phis, angles, keys, ts, L=L, T=T, p=p, q=q,
-            initial_state=initial_state, ancilla_factor=ancilla_factor)
-
-    hi_ok = (
-        not isinstance(angles, jax.core.Tracer) and not has_y and K == 1
-        and 22 <= L <= 30 and q < L and dtype_name == "complex64"
-        and (29 <= L or engine == "streamed_hi")
-        and T <= 512 and engine in ("auto", "resident", "streamed",
-                                    "blocked", "streamed_hi")
-        and jax.default_backend() != "cpu")
-    if hi_ok:
-        ang_np = np.asarray(angles)
-        hi_ok = bool(np.all(ang_np[:, :, 1] == 0.0)) and bool(
-            np.all(ang_np == ang_np[0]))
-    if hi_ok:
-        # r2-blocked HBM-streamed echo kernel: the single-chip L=29/30
-        # ECHO engine (bounded slab sizes — ops/pallas_streamed_hi;
-        # previously L >= 29 echo fell to the deopted sigma engine).
-        # engine='streamed_hi' selects it explicitly at 22 <= L <= 28.
-        from dtc_tpu.ops.pallas_streamed_hi import streamed_hi_echo_batch
-
-        return streamed_hi_echo_batch(
-            hs, phis, angles, keys, ts, L=L, T=T, p=p, q=q,
-            initial_state=initial_state, ancilla_factor=ancilla_factor)
-
-    from dtc_tpu.core.sigma_evolve import sigma_echo_batch
-
-    return sigma_echo_batch(
-        hs, phis, angles, keys, ts, L=L, T=T, K=K, p=p, q=q,
-        initial_state=initial_state, dtype_name=dtype_name,
-        ancilla_factor=ancilla_factor, has_y=has_y)
-
-
 def _inst_keys(key, inst, salt, count):
     """(inst, count, 2) trajectory keys; ``salt`` is the chunk offset.
 
     Because the chunk offset folds into the key, the trajectory ensemble
-    a sweep draws depends on its CHUNK BOUNDARIES, and chunk sizes are
-    engine-dependent (kernel routes chunk by pair/trajectory count, XLA
-    routes by state-bytes budget). Reproducibility per engine+config is
-    exact, but engine-vs-engine "trajectory-exact" comparisons must use
-    a trajectory count both routes take in ONE chunk — mismatched
-    chunking yields different (equally valid) ensembles that differ by
-    sampling noise (docs/PERFORMANCE.md round-4 notes, measured 4.2e-3
-    on a y/L=24 echo A/B vs 3.3e-5 chunk-matched)."""
+    a sweep draws depends on its CHUNK BOUNDARIES (traj_chunks' state-bytes
+    budget). Reproducibility per config is exact, but "trajectory-exact"
+    comparisons between two runs must use a trajectory count both take in
+    ONE chunk — mismatched chunking yields different (equally valid)
+    ensembles that differ by sampling noise."""
     ki = jax.random.split(key, inst)
     return jnp.stack([jax.random.split(jax.random.fold_in(k, salt), count)
                       for k in ki])
@@ -475,26 +64,22 @@ def _inst_keys(key, inst, salt, count):
 
 def forward_sweep(cfg, sched, params, noise, key) -> np.ndarray:
     """A(t) per instance, trajectory-averaged: returns (inst, T)."""
+    from dtc_tpu.core.sigma_evolve import sigma_forward_batch
+
     hs, phis = params
     p = noise.p
     af = noise.ancilla_factor if p > 0 else 1.0
     kw = dict(L=cfg.L, T=cfg.tf, K=sched.K, p=p, q=cfg.probe_qubit,
               initial_state=cfg.initial_state, dtype_name=cfg.dtype,
               ancilla_factor=af, has_y=cfg.polarization != "x")
-
-    if _singlechip_general_hi_ok(cfg, sched):
-        return _singlechip_general_forward(cfg, sched, params, noise, key)
     n_traj = cfg.n_trajectories if p > 0 else 1
-    if _kernel_dispatch_likely(cfg, sched, echo=False):
-        chunk = min(n_traj, 4096)  # kernel HBM residency = param rows only
-    else:
-        chunk = traj_chunks(n_traj, cfg.L, extra_factor=2 * cfg.inst)
+    chunk = traj_chunks(n_traj, cfg.L, extra_factor=2 * cfg.inst)
     acc = np.zeros((cfg.inst, cfg.tf))
     done = 0
     while done < n_traj:
         c = min(chunk, n_traj - done)
         keys = _inst_keys(key, cfg.inst, done, c)
-        vals = _forward_batch(hs, phis, sched.angles, keys, **kw)
+        vals = sigma_forward_batch(hs, phis, sched.angles, keys, **kw)
         acc += guard("forward_batch", jnp.sum(vals, axis=1), bound=float(c))
         done += c
     return guard("forward_sweep", acc / n_traj, bound=1.0)
@@ -506,6 +91,8 @@ def echo_sweep(cfg, sched, params, noise, key, *, t_chunk: int = 8) -> np.ndarra
     Noiseless echo is exactly 1 (U^dag U = I) — returned analytically, which
     is also the reference's own self-validation invariant (SURVEY.md §4.1).
     """
+    from dtc_tpu.core.sigma_evolve import sigma_echo_batch
+
     hs, phis = params
     p = noise.p
     if p == 0.0:
@@ -514,18 +101,8 @@ def echo_sweep(cfg, sched, params, noise, key, *, t_chunk: int = 8) -> np.ndarra
               initial_state=cfg.initial_state, dtype_name=cfg.dtype,
               ancilla_factor=noise.ancilla_factor,
               has_y=cfg.polarization != "x")
-
-    if _singlechip_general_hi_ok(cfg, sched):
-        return _singlechip_general_echo(cfg, sched, params, noise, key)
     n_traj = cfg.n_trajectories
-    if _kernel_dispatch_likely(cfg, sched, echo=True):
-        # kernel echo: (traj, t) pairs are grid steps over a VMEM/HBM
-        # scratch — chunk by pair count, not state bytes (the old
-        # state-bytes budget sliced L=20 sweeps into ~15-trajectory
-        # dispatches)
-        chunk = min(n_traj, max(1, 4096 // t_chunk))
-    else:
-        chunk = traj_chunks(n_traj, cfg.L, extra_factor=2 * cfg.inst * t_chunk)
+    chunk = traj_chunks(n_traj, cfg.L, extra_factor=2 * cfg.inst * t_chunk)
     out = np.zeros((cfg.inst, cfg.tf))
     for t0 in range(0, cfg.tf, t_chunk):
         ts = np.arange(t0, min(t0 + t_chunk, cfg.tf))
@@ -535,7 +112,8 @@ def echo_sweep(cfg, sched, params, noise, key, *, t_chunk: int = 8) -> np.ndarra
         while done < n_traj:
             c = min(chunk, n_traj - done)
             keys = _inst_keys(key, cfg.inst, 7919 + done, c)
-            vals = _echo_batch(hs, phis, sched.angles, keys, ts_pad, **kw)
+            vals = sigma_echo_batch(hs, phis, sched.angles, keys, ts_pad,
+                                    **kw)
             acc += guard("echo_batch", jnp.sum(vals, axis=1), bound=float(c))
             done += c
         out[:, t0 : t0 + len(ts)] = (acc / n_traj)[:, : len(ts)]

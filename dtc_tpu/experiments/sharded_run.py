@@ -1,7 +1,7 @@
-"""Multi-chip (amplitude-sharded) experiment driver — BASELINE config 5:
-beyond-single-chip statevector trajectory ensembles (e.g. L=32 over a
-v5e-16), the capability the reference entirely lacks (its ceiling is
-single-GPU Aer; SURVEY.md §6).
+"""Multi-device (amplitude-sharded) experiment driver: statevector
+trajectory ensembles past one card's memory (e.g. L=32 over four cards), the
+capability the reference entirely lacks (its ceiling is single-GPU Aer;
+SURVEY.md §6).
 """
 
 from __future__ import annotations
@@ -21,11 +21,7 @@ from dtc_tpu.parallel.mesh import make_mesh
 from dtc_tpu.utils.validation import guard
 from dtc_tpu.parallel.sharded import (
     make_sharded_autocorr_forward,
-    make_sharded_autocorr_forward_general,
-    make_sharded_autocorr_forward_kernel,
     make_sharded_echo,
-    make_sharded_echo_general,
-    make_sharded_echo_kernel,
     make_sharded_observables,
 )
 from dtc_tpu.utils.profiling import phase_timer
@@ -39,51 +35,6 @@ def _auto_mesh(L: int, n_amp=None):
                and (1 << L) // (n_amp * 2) >= 2):
             n_amp *= 2
     return make_mesh(n_amp=n_amp, n_traj=n_dev // n_amp)
-
-
-def _cycle_kernel_ok(mesh, sched, cfg):
-    """Auto-dispatch test for the per-shard Pallas cycle kernel
-    (ops/pallas_cycle): TPU only, constant x-only schedule (same contract
-    as the single-chip fast kernels — engine._resident_dispatch), a
-    shard-local probe q < L - log2(n_amp),
-    and shard-local bits 17..29 (17..23 VMEM-resident per-shard kernel;
-    24..29 the r2-blocked HBM-streamed per-shard kernel,
-    ops/pallas_cycle_hi — kernel-rate sharding to L = 29 + log2(n_amp);
-    L_loc = 30 states cross the 2^32 DMA-offset window and route to the
-    XLA sharded engine)."""
-    engine = os.environ.get("DTC_TPU_SHARDED_ENGINE", "auto")
-    if engine == "xla":
-        return False
-    if engine not in ("auto", "cycle_kernel"):
-        raise ValueError(f"DTC_TPU_SHARDED_ENGINE={engine!r} "
-                         "(want auto|xla|cycle_kernel)")
-    local_bits = cfg.L - int(np.log2(mesh.shape["amp"]))
-    ang = np.asarray(sched.angles)
-    eligible = (sched.K == 1 and cfg.probe_qubit < local_bits
-                and 17 <= local_bits <= 29
-                and bool(np.all(ang[:, :, 1] == 0.0))
-                and bool(np.all(ang == ang[0]))
-                and jax.default_backend() == "tpu")
-    if engine == "cycle_kernel" and not eligible:
-        raise ValueError(
-            "cycle_kernel sharded engine requires a constant x-only "
-            "schedule, a shard-local probe q < L - log2(n_amp), a TPU "
-            f"backend and 17 <= L - log2(n_amp) <= 29 (got L={cfg.L}, "
-            f"n_amp={mesh.shape['amp']}, q={cfg.probe_qubit})")
-    return eligible
-
-
-def _general_kernel_ok(mesh, cfg):
-    """Auto-dispatch test for the LAB-frame per-shard cycle kernel
-    (make_sharded_autocorr_forward_general): covers every polarization
-    family + per-cycle schedules where the specialized x kernel does not
-    apply. Same geometry envelope; TPU only."""
-    engine = os.environ.get("DTC_TPU_SHARDED_ENGINE", "auto")
-    if engine == "xla":
-        return False
-    local_bits = cfg.L - int(np.log2(mesh.shape["amp"]))
-    return (cfg.probe_qubit < local_bits and 17 <= local_bits <= 23
-            and jax.default_backend() == "tpu")
 
 
 def run_autocorr_sharded(cfg, hs=None, phis=None, *, n_amp=None, mesh=None,
@@ -105,19 +56,10 @@ def run_autocorr_sharded(cfg, hs=None, phis=None, *, n_amp=None, mesh=None,
         xy_cycle_period=cfg.xy_cycle_period)
     kw = dict(L=cfg.L, T=cfg.tf, K=sched.K, p=noise.p, q=cfg.probe_qubit,
               initial_state=cfg.initial_state)
-    use_kernel = _cycle_kernel_ok(mesh, sched, cfg)
-    kkw = {k: v for k, v in kw.items() if k != "K"}
-    if use_kernel:
-        fwd = make_sharded_autocorr_forward_kernel(mesh, **kkw)
-    elif _general_kernel_ok(mesh, cfg):
-        # lab-frame per-shard kernel: y/xy/yx/circular/xy_cycle + per-cycle
-        # schedules at kernel rate on the sharded path
-        fwd = make_sharded_autocorr_forward_general(mesh, **kw)
-    else:
-        # has_y engages the sigma-conjugated kick machinery for drives
-        # with a Y component (required for correct noisy evolution)
-        fwd = make_sharded_autocorr_forward(
-            mesh, has_y=cfg.polarization != "x", **kw)
+    # has_y engages the sigma-conjugated kick machinery for drives with a
+    # Y component (required for correct noisy evolution)
+    has_y = cfg.polarization != "x"
+    fwd = make_sharded_autocorr_forward(mesh, has_y=has_y, **kw)
 
     n_traj = max(cfg.n_trajectories if noise.p > 0 else 1,
                  mesh.shape["traj"])
@@ -140,16 +82,7 @@ def run_autocorr_sharded(cfg, hs=None, phis=None, *, n_amp=None, mesh=None,
                 fwd(sched.angles, jnp.asarray(hs[i][: cfg.L]),
                     jnp.asarray(phis[i][: cfg.L - 1]), keys), bound=1.0)
     if with_echo and noise.p > 0:
-        # echo rides the cycle kernels too (roadmap #5) — without this the
-        # echo half of every multi-chip forward+echo study ran at the
-        # deopted XLA-scan rate (VERDICT r2 missing #1)
-        if use_kernel:
-            ech = make_sharded_echo_kernel(mesh, **kkw)
-        elif _general_kernel_ok(mesh, cfg):
-            ech = make_sharded_echo_general(mesh, **kw)
-        else:
-            ech = make_sharded_echo(
-                mesh, has_y=cfg.polarization != "x", **kw)
+        ech = make_sharded_echo(mesh, has_y=has_y, **kw)
         ts = list(range(cfg.tf)) if echo_ts is None else list(echo_ts)
         for i in range(cfg.inst):
             keys = jax.random.split(jax.random.fold_in(key, 7919 + i), n_traj)
@@ -184,35 +117,13 @@ def run_energy_sharded(cfg, hs=None, phis=None, *, n_amp=None, mesh=None,
                        nprobs=(0.0, 0.001, 0.01, 0.1), component="full",
                        out_dir=None, disorder_dir=None, write=True,
                        per_qubit_norm=True) -> dict:
-    """Energy sweep E(t)/L on an amplitude-sharded mesh — the multi-chip
+    """Energy sweep E(t)/L on an amplitude-sharded mesh — the multi-device
     counterpart of experiments.energy.run_energy (reference energy path at
     autocorr-delta-a-single-qiskit-fast-energy.py:210-231 is single-GPU;
-    this scales past one chip's HBM). Same CSV schema `time, energy_p_{p}`.
+    this scales past one card's memory). Same CSV schema `time, energy_p_{p}`.
     """
     from dtc_tpu.models.hamiltonian import hamiltonian_terms
 
-    if jax.default_backend() != "cpu":
-        # the sharded observables path is the same eager-noise program
-        # class whose transverse terms this backend mis-evaluates at
-        # 17 <= L <= 23 (measured — energy._guard_energy_xla); the
-        # single-chip kernel route covers exactly those sizes, so refuse
-        # there and warn above (L >= 24 is unvalidatable on one chip)
-        if 17 <= cfg.L <= 23:
-            raise ValueError(
-                "run_energy_sharded at 17 <= L <= 23 on this TPU backend: "
-                "the eager observables program's noisy transverse terms "
-                "are mis-evaluated at these sizes (see "
-                "experiments.energy._guard_energy_xla) — use "
-                "experiments.energy.run_energy (observables kernel) "
-                "instead.")
-        import warnings
-
-        warnings.warn(
-            "run_energy_sharded rides the eager XLA observables program; "
-            "this TPU backend mis-evaluated its noisy transverse terms at "
-            "17 <= L <= 23 (energy._guard_energy_xla) and larger sizes "
-            "are unvalidated against that failure mode — cross-check "
-            "X-dependent results where possible.", stacklevel=2)
     if hs is None or phis is None:
         hs, phis = get_disorder(cfg, disorder_dir)
     if mesh is None:

@@ -1,8 +1,8 @@
 """Device-noise models: the FakeBrisbane / IQMFakeGarnet analogue (C9).
 
 The reference switches between a flat custom depolarizing model and
-`NoiseModel.from_backend(FakeBrisbane())` (fast.py:77-79). The TPU-native
-equivalent imports a CALIBRATION (per-qubit 1q error, per-edge 2q error,
+`NoiseModel.from_backend(FakeBrisbane())` (fast.py:77-79). The equivalent
+here imports a CALIBRATION (per-qubit 1q error, per-edge 2q error,
 readout error) and maps it onto the chain through a snake layout
 (dtc_tpu.device.layouts), producing:
 

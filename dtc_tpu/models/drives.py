@@ -108,8 +108,8 @@ def build_kick_schedule(
 
 def slot_unitary(theta_x, theta_y, dtype=jnp.complex64) -> jnp.ndarray:
     """2x2 unitary RY(theta_y) @ RX(theta_x) in closed form (one of the two
-    angles is 0 per slot; closed form avoids a bf16-precision 2x2 matmul —
-    TPU matmuls default to bf16, which would corrupt the gate matrix)."""
+    angles is 0 per slot; closed form avoids a 2x2 matmul whose default
+    precision may be reduced, which would corrupt the gate matrix)."""
     cx, sx = jnp.cos(theta_x / 2), jnp.sin(theta_x / 2)
     cy, sy = jnp.cos(theta_y / 2), jnp.sin(theta_y / 2)
     # RY = [[cy, -sy],[sy, cy]]; RX = [[cx, -i sx],[-i sx, cx]]

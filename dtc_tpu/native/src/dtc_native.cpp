@@ -1,7 +1,7 @@
 // Native runtime helpers for dtc_tpu.
 //
 // The reference delegates all native work to Qiskit Aer / PennyLane
-// Lightning C++ (SURVEY.md §2d). Our TPU compute path is XLA; this library
+// Lightning C++ (SURVEY.md §2d). Our device compute path is XLA; this library
 // covers the HOST-side runtime hot spots around it:
 //   - measurement decoding: raw per-shot bit arrays -> <Z_q> (the reference
 //     re-parses python dicts of bitstrings, autocorr-iqm-data-fix.py:42-60;

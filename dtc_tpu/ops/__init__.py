@@ -1,4 +1,4 @@
-"""Gate-application kernels for statevector simulation on TPU."""
+"""Gate-application layers for statevector simulation."""
 
 from dtc_tpu.ops.gates import (  # noqa: F401
     apply_1q,

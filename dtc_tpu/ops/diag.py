@@ -3,7 +3,7 @@
 The whole interaction + disorder part of one Floquet cycle —
 even-bond RZZ, odd-bond RZZ, and the RZ disorder layer
 (autocorr-delta-a-single-qiskit-fast.py:115-120) — is diagonal in the
-computational basis and mutually commuting, so on TPU it collapses into ONE
+computational basis and mutually commuting, so it collapses into ONE
 elementwise complex multiply by a precomputed phase mask, instead of the
 reference's 2L-1 separate gate applications per cycle.
 

@@ -12,8 +12,8 @@ Conventions
   array replaces the input.
 
 These are the "reference kernels": simple reshape+contract forms that XLA
-lowers to batched matmuls/fused elementwise on TPU. The fused fast paths live
-in :mod:`dtc_tpu.ops.kick` (MXU kron-grouped kick layers) and
+lowers to batched matmuls/fused elementwise. The fused fast paths live
+in :mod:`dtc_tpu.ops.kick` (kron-grouped kick layers) and
 :mod:`dtc_tpu.ops.diag` (single phase mask per Floquet diagonal layer).
 """
 

@@ -1,12 +1,13 @@
-"""Fused single-qubit gate layers via kron-grouped MXU matmuls.
+"""Fused single-qubit gate layers via kron-grouped matmuls.
 
 The reference applies the kick layer as L separate ``rx(pi*g)`` gates
 (autocorr-delta-a-single-qiskit-fast.py:113-114), which on any backend means L
-passes over the 2**n amplitudes. On TPU we group ``k`` qubits at a time and
-left-multiply by the dense ``2**k x 2**k`` Kronecker power ``U^{(x)k}`` — for
-k=7 that is a 128x128 matrix, exactly the MXU tile, turning the whole layer
-into ``ceil(n/k)`` batched matmuls (~k-fold less HBM traffic than per-qubit
-application and all FLOPs on the systolic array).
+passes over the 2**n amplitudes. Here ``k`` qubits at a time are
+left-multiplied by the dense ``2**k x 2**k`` Kronecker power ``U^{(x)k}``,
+turning the whole layer into ``ceil(n/k)`` batched matmuls: ~k-fold less
+memory traffic than per-qubit application, at 2**k complex multiply-adds per
+amplitude per group instead of 2. Whether k=7 is the right trade on the
+current device is an open measurement (ROADMAP S3).
 """
 
 from __future__ import annotations
@@ -15,7 +16,6 @@ import jax.numpy as jnp
 
 from dtc_tpu.ops.precision import gate_precision
 
-# 2**7 = 128 = MXU tile edge.
 _GROUP = 7
 
 

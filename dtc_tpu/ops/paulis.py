@@ -17,9 +17,8 @@ from __future__ import annotations
 import jax.numpy as jnp
 import numpy as np
 
-# I, X, Y, Z — host-side table (tests / channel builders). Kept as numpy:
-# this TPU backend supports complex math on-device but NOT host<->device
-# transfers of complex buffers, so no module-level complex jnp constants.
+# I, X, Y, Z — host-side table (tests / channel builders). Kept as numpy so
+# importing this module creates no device array.
 PAULIS = np.array(
     [
         [[1, 0], [0, 1]],

@@ -1,10 +1,11 @@
-"""MXU precision policy for state-evolution contractions.
+"""Matmul precision policy for state-evolution contractions.
 
-TPU matmuls default to bf16 MXU passes, which visibly corrupts unitary
-evolution (noiseless |A(t)| drifted to 1.004 after ONE Floquet cycle at
-L=4). Quantum-state contractions therefore default to HIGHEST (full f32).
-Set `DTC_TPU_MATMUL_PRECISION=high` (bf16x3, ~f32-accurate, faster) or
-`default` (raw bf16 — only for roofline experiments) to trade off.
+On the GPU, float32 matmuls at DEFAULT or HIGH precision may run in TF32,
+which keeps about three decimal digits — enough to visibly break the
+unitarity of a Floquet evolution over tens of cycles. Quantum-state
+contractions therefore default to HIGHEST (full float32).
+Set `DTC_TPU_MATMUL_PRECISION=high` or `default` only for precision or
+roofline experiments.
 """
 
 from __future__ import annotations

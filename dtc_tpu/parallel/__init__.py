@@ -1,11 +1,8 @@
-"""Multi-chip simulation: device meshes + amplitude-sharded statevectors."""
+"""Multi-device simulation: device meshes + amplitude-sharded statevectors."""
 
 from dtc_tpu.parallel.mesh import make_mesh  # noqa: F401
 from dtc_tpu.parallel.sharded import (  # noqa: F401
     make_sharded_autocorr_forward,
-    make_sharded_autocorr_forward_general,
-    make_sharded_autocorr_forward_kernel,
     make_sharded_echo,
-    make_sharded_echo_general,
-    make_sharded_echo_kernel,
+    make_sharded_observables,
 )

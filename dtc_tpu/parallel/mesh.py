@@ -2,15 +2,17 @@
 
 The reference's only distributed hook is PennyLane-Lightning's `mpi=True`
 (dtc_qasm.py:57-58, unused elsewhere); its simulation ceiling is single-GPU
-Aer. Here multi-chip is first-class: a 2-axis mesh
+Aer. Here multi-device is first-class: a 2-axis mesh
 
     ('traj', 'amp')
 
 where 'traj' data-parallelizes noise trajectories / disorder instances
 (embarrassingly parallel, no comms beyond the final mean) and 'amp' shards
-the 2**L amplitudes across chips (the analogue of sequence/context
-parallelism — SURVEY.md §2e). 'amp' collectives are nearest-pair ppermutes
-that ride ICI; 'traj' only ever all-reduces scalars, so it can span DCN.
+the 2**L amplitudes across devices (the analogue of sequence/context
+parallelism — SURVEY.md §2e). 'amp' collectives are pairwise ppermutes
+(shard a <-> a XOR 2^b for a global qubit b); 'traj' only ever all-reduces
+scalars. The cards of one host are joined all to all at one rate (NVLink),
+so the mesh follows the algorithm alone: any device order serves.
 """
 
 from __future__ import annotations

@@ -19,21 +19,18 @@ index bits, so device a of the 'amp' axis holds global indices
   the diagonal's sigma-correction fold into the next kick's kron-group
   columns (local bits), into the global kicks' 2x2 column scalings (shard
   bits), and into tiny per-shard bond factors. The scan body is
-  loop-invariant apart from small folded factors — the same deopt-avoiding
-  discipline as the single-chip sigma engine (docs/PERFORMANCE.md);
+  loop-invariant apart from small folded factors, like the single-device
+  sigma engine;
 - the observables path (which measures off-diagonal <X_q> every cycle and
   therefore cannot ride a deferred frame) still applies strings eagerly:
   one unconditional pair exchange per global x-bit + a local XOR gather,
   with its noise presampled outside the scan;
 - expectations are local partial reductions + `psum` over 'amp';
 - trajectories shard over 'traj' with no intra-step comms (the final mean is
-  one scalar psum), so 'traj' may span DCN while 'amp' stays on ICI.
+  one scalar psum).
 """
 
 from __future__ import annotations
-
-import functools
-import os
 
 import jax
 import jax.numpy as jnp
@@ -209,1129 +206,6 @@ def _sharded_forward_cycle(state, pending, ang, ev, d0, exp_h, exp_p, *, L,
     return state * d0, (pend_zm, sig_after)
 
 
-def _tail_phase_angles(zm_t, sig_t, hs, phis, aidx, *, L, local_bits):
-    """Per-(shard, trajectory) diagonal angles for the cycle-kernel path's
-    XLA tail: (theta_scalar (n,), theta_boundary (n,)) such that the
-    global part of the post-fold cycle diagonal is
-    exp(i*theta_scalar) * exp(i*theta_boundary*z_topbit) — the shard-bit h
-    terms with their sigma corrections, the noise-Z signs on shard bits,
-    the shard-shard bonds, and the boundary bond phi[local_bits-1] (whose
-    z_{local_bits} leg is shard bit 0, folded into theta_boundary; its
-    z_{local_bits-1} leg is the local TOP bit, applied by the caller as a
-    2-half broadcast). Mirrors the compact-row angle formula of the
-    resident kernels (cz = h*(sig-0.5) - pi/2*n, cb = phi*(flip-0.5),
-    c0 = pi/2*sum(n)) restricted to bits >= local_bits.
-
-    ``hs``/``phis`` may be static (L,)/(L-1,) vectors OR per-trajectory
-    (n, L)/(n, L-1) rows — the device-noise route feeds the event-
-    commutation sign-adjusted diagonal rows of _device_general_rows per
-    cycle (the frame-conjugation flips here multiply ON TOP of those
-    signs: moving bond events through the diagonal sublayers and
-    deferring X applications are independent transformations)."""
-    half_pi = float(np.pi / 2)
-    qs = jnp.arange(L, dtype=jnp.uint32)
-    zb = ((sig_t[:, None] >> qs) & 1).astype(jnp.float32)   # (n, L)
-    nb = ((zm_t[:, None] >> qs) & 1).astype(jnp.float32)
-    hf = hs.astype(jnp.float32)
-    pf = phis.astype(jnp.float32)
-    th_sc = jnp.zeros(zm_t.shape, jnp.float32)
-    for qq in range(local_bits, L):
-        gb = qq - local_bits
-        z = (1 - 2 * ((aidx >> gb) & 1)).astype(jnp.float32)
-        czq = hf[..., qq] * (zb[:, qq] - 0.5) - half_pi * nb[:, qq]
-        th_sc = th_sc + czq * z + half_pi * nb[:, qq]
-    for b in range(local_bits, L - 1):
-        gb, gb1 = b - local_bits, b + 1 - local_bits
-        zz = ((1 - 2 * ((aidx >> gb) & 1))
-              * (1 - 2 * ((aidx >> gb1) & 1))).astype(jnp.float32)
-        flip = jnp.abs(zb[:, b] - zb[:, b + 1])
-        th_sc = th_sc + pf[..., b] * (flip - 0.5) * zz
-    b = local_bits - 1
-    flip = jnp.abs(zb[:, b] - zb[:, b + 1])
-    z_s0 = (1 - 2 * (aidx & 1)).astype(jnp.float32)
-    th_bnd = pf[..., b] * (flip - 0.5) * z_s0
-    return th_sc, th_bnd
-
-
-def _planar_phase(st, cr, ci):
-    """st (n, 2, ...) planar * per-trajectory complex scalar (cr + i*ci)."""
-    shape = (-1,) + (1,) * (st.ndim - 2)
-    cr = cr.reshape(shape)
-    ci = ci.reshape(shape)
-    return jnp.stack([cr * st[:, 0] - ci * st[:, 1],
-                      cr * st[:, 1] + ci * st[:, 0]], axis=1)
-
-
-def _global_shard_kicks(st, theta, n_amp):
-    """Pure RX(theta) kicks on every shard-id bit: ppermute pair exchange +
-    planar 2-term combine per bit. The per-bit kicks commute (disjoint
-    qubits), so bit order is free."""
-    c = jnp.cos(theta / 2).astype(jnp.float32)
-    s = jnp.sin(theta / 2).astype(jnp.float32)
-    for gb in range(int(np.log2(n_amp))):
-        partner = jax.lax.ppermute(st, "amp", _xor_perm(n_amp, gb))
-        # RX 2x2 = [[c, -i s], [-i s, c]]: new = c*mine + (-i s)*partner
-        st = jnp.stack([c * st[:, 0] + s * partner[:, 1],
-                        c * st[:, 1] - s * partner[:, 0]], axis=1)
-    return st
-
-
-def _global_diag(st, zm_t, sig_t, hs, phis, *, L, local_bits):
-    """Global diagonal factors of one cycle-kernel cycle, from
-    _tail_phase_angles: the replicated per-shard scalar phase plus the
-    boundary bond's local-top-bit split."""
-    aidx = jax.lax.axis_index("amp")
-    th_sc, th_bnd = _tail_phase_angles(zm_t, sig_t, hs, phis, aidx,
-                                       L=L, local_bits=local_bits)
-    st = _planar_phase(st, jnp.cos(th_sc), jnp.sin(th_sc))
-    n, _, TOP, C = st.shape
-    st = st.reshape(n, 2, 2, TOP // 2, C)
-    lo = _planar_phase(st[:, :, 0], jnp.cos(th_bnd), jnp.sin(th_bnd))
-    hi = _planar_phase(st[:, :, 1], jnp.cos(th_bnd), -jnp.sin(th_bnd))
-    return jnp.stack([lo, hi], axis=2).reshape(n, 2, TOP, C)
-
-
-def _global_diag_inv(st, zm_t, sig_t, hs, phis, *, L, local_bits):
-    """Daggered counterpart of _global_diag (negated angles) — the general
-    echo's inverse-step global diagonal, evaluated at the step's pre-event
-    sigma with the PREVIOUS event's Z word (the Z-fold is its own
-    conjugate, so negating the whole angle is exact)."""
-    aidx = jax.lax.axis_index("amp")
-    th_sc, th_bnd = _tail_phase_angles(zm_t, sig_t, hs, phis, aidx,
-                                       L=L, local_bits=local_bits)
-    st = _planar_phase(st, jnp.cos(th_sc), -jnp.sin(th_sc))
-    n, _, TOP, C = st.shape
-    st = st.reshape(n, 2, 2, TOP // 2, C)
-    lo = _planar_phase(st[:, :, 0], jnp.cos(th_bnd), -jnp.sin(th_bnd))
-    hi = _planar_phase(st[:, :, 1], jnp.cos(th_bnd), jnp.sin(th_bnd))
-    return jnp.stack([lo, hi], axis=2).reshape(n, 2, TOP, C)
-
-
-def _global_cycle_tail(st, zm_t, sig_t, hs, phis, theta, *, L, local_bits,
-                       n_amp):
-    """XLA tail of one cycle-kernel cycle: pure RX kicks on every shard bit,
-    then the global diagonal factors. Runs AFTER the local kernel; exact
-    because the local diagonal commutes with shard-bit kicks and all
-    diagonals commute with each other (the boundary bond, which involves
-    the local top bit, correctly lands after ALL kicks here)."""
-    st = _global_shard_kicks(st, theta, n_amp)
-    return _global_diag(st, zm_t, sig_t, hs, phis, L=L, local_bits=local_bits)
-
-
-def _global_cycle_head(st, zm_t, sig_t, hs, phis, theta, *, L, local_bits,
-                       n_amp):
-    """Conjugated-frame inverse counterpart of _global_cycle_tail: the SAME
-    global factors with UN-negated angles (RX kicks and diagonals are
-    symmetric, so inside the once-conjugated echo frame each physical
-    dagger IS the forward operator) in MIRRORED order — diagonal factors
-    BEFORE the shard-bit kicks, evaluated at this step's pre-event sigma
-    with the PREVIOUS event's Z word (the pre-fold deferral rule). Runs
-    BEFORE the local inverse kernel of the same step."""
-    st = _global_diag(st, zm_t, sig_t, hs, phis, L=L, local_bits=local_bits)
-    return _global_shard_kicks(st, theta, n_amp)
-
-
-def _hi_split_min_lb() -> int:
-    """Shard-local size at which the per-shard hi kernels switch to the
-    SPLIT per-plane (re, im) state pair (the 2^32 DMA-offset wrap bound:
-    a fused L_loc = 30 state puts plane 1's base at exactly 2^32 —
-    docs/PERFORMANCE.md round-4). Default 30; DTC_TPU_SHARDED_HI_SPLIT_
-    MIN_LB lowers it for interpret cross-checks at feasible sizes.
-    Kernel-rate sharding therefore reaches L = 30 + log2(n_amp)."""
-    return int(os.environ.get("DTC_TPU_SHARDED_HI_SPLIT_MIN_LB", "30"))
-
-
-def _on_fused(st, split_state, fn):
-    """Run an (n, 2, TOP, C)-shaped global-op callable over a split
-    (re, im) carry by stacking/unstacking around it. The stack copies
-    only exist at L >= 31 multi-chip (k_bits > 0 with split carries) —
-    compile-validation territory on this hardware; the (1,1)-mesh
-    L_loc = 30 route has no global ops at all."""
-    if not split_state:
-        return fn(st)
-    stf = fn(jnp.stack(st, axis=1))
-    return (stf[:, 0], stf[:, 1])
-
-
-def _check_constant_x(fn):
-    """Wrap a cycle-kernel sharded fn so a CONCRETE schedule that violates
-    the constant-x contract raises instead of silently reading angles[0,0,0]
-    (the CLI layer checks too, but direct library callers must not get
-    silently wrong physics — ADVICE r2). Tracer schedules pass through (the
-    caller jitted around us and owns the contract)."""
-
-    @functools.wraps(fn)
-    def checked(angles, *args):
-        if not isinstance(angles, jax.core.Tracer):
-            ang = np.asarray(angles)
-            if not (ang.shape[1] == 1 and np.all(ang[:, :, 1] == 0.0)
-                    and np.all(ang == ang[0])):
-                raise ValueError(
-                    "cycle-kernel sharded engine requires a constant x-only "
-                    "K=1 schedule (only angles[0,0,0] is read)")
-        return fn(angles, *args)
-
-    return checked
-
-
-def make_sharded_autocorr_forward_kernel(
-    mesh, *, L, T, p, q, initial_state="vacuum", ancilla_factor=None,
-    interpret=False,
-):
-    """Cycle-kernel sharded forward autocorrelator (roadmap #4): the
-    shard-LOCAL part of every cycle runs in ONE fused Pallas call
-    (kick + noise-Z + sigma-conjugated D0 + the A(t) partial sum), and
-    only the shard-bit kicks + tiny diagonal factors stay in XLA.
-    17 <= L_loc <= 23 (L_loc = L - log2(n_amp)) rides the VMEM-resident
-    per-shard kernel (ops/pallas_cycle, state VMEM-resident within the
-    cycle); 24 <= L_loc <= 29 the r2-blocked HBM-streamed per-shard kernel
-    (ops/pallas_cycle_hi, two bounded DMA sweeps per cycle) — kernel-rate
-    sharding up to L = 29 + log2(n_amp) (L_loc = 30 would put one
-    trajectory's plane 1 at the 2^32 DMA-offset wrap — docs/PERFORMANCE.md
-    round-4 notes). Requires a constant x-only
-    schedule (only angles[0,0,0] is read — the engine dispatch contract
-    shared with ops/pallas_streamed), K=1 and a shard-local probe
-    q < L - log2(n_amp) (column sign for q < 14, row/block sign above).
-    DTC_TPU_SHARDED_HI_MIN_LB (default 24, min 22) lowers the hi-kernel
-    crossover for cross-checks.
-
-    Same signature/semantics as make_sharded_autocorr_forward; matches it
-    (and the unsharded sigma engine) trajectory-for-trajectory at the
-    bf16x3 dot level with identical presampled noise.
-    """
-    from dtc_tpu.core.sigma_evolve import presample_noise
-    from dtc_tpu.ops.pallas_cycle import cycle_forward_apply
-    from dtc_tpu.ops.pallas_cycle_hi import hi_cycle_forward_apply
-    from dtc_tpu.ops.pallas_noise import pack_cycle_params_compact
-    from dtc_tpu.ops.pallas_resident import _C, _kick_matrices
-    from dtc_tpu.ops.pallas_streamed import _rx_kron
-
-    n_amp = mesh.shape["amp"]
-    n_traj_dev = mesh.shape["traj"]
-    k_bits = int(np.log2(n_amp))
-    local_bits = L - k_bits
-    if not (17 <= local_bits <= 30):
-        raise ValueError(
-            f"cycle-kernel sharding needs 17 <= L - log2(n_amp) <= 30 "
-            f"(got L={L}, n_amp={n_amp}: local_bits={local_bits})")
-    if not (0 <= q < local_bits):
-        raise ValueError(
-            "cycle-kernel sharding requires a shard-local probe qubit "
-            f"q < L - log2(n_amp) = {local_bits} (got q={q})")
-    use_hi = local_bits >= max(
-        22, int(os.environ.get("DTC_TPU_SHARDED_HI_MIN_LB", "24")))
-    split_state = use_hi and local_bits >= _hi_split_min_lb()
-    width = 128 if 5 * local_bits - 2 <= 128 else 256
-    M = 1 << local_bits
-    TOP = M // _C
-    af = ((1.0 - p) ** 6 if p > 0 else 1.0
-          ) if ancilla_factor is None else ancilla_factor
-    init_idx = 0 if initial_state == "vacuum" else neel_index(L)
-    s0 = 1.0 if ((init_idx >> q) & 1) == 0 else -1.0
-
-    def local_fn(angles, hs, phis, keys):
-        theta = angles[0, 0, 0]
-        if use_hi:
-            u7r, u7i = (m[None] for m in _rx_kron(theta, 7))
-            utr, uti = (m[None] for m in _rx_kron(theta, local_bits - 21))
-        else:
-            u7r, u7i, utr, uti = _kick_matrices(
-                angles, local_bits, TOP, time_dependent=False)
-        offset = (jax.lax.axis_index("amp") * M).astype(jnp.uint32)
-        gidx = (jnp.arange(M, dtype=jnp.uint32) + offset).reshape(TOP, _C)
-        plane0 = (gidx == jnp.uint32(init_idx)).astype(jnp.float32)
-        n = keys.shape[0]
-        if split_state:
-            state0 = (jnp.broadcast_to(plane0[None], (n, TOP, _C)),
-                      jnp.zeros((n, TOP, _C), jnp.float32))
-        else:
-            state0 = jnp.broadcast_to(
-                jnp.stack([plane0, jnp.zeros_like(plane0)])[None],
-                (n, 2, TOP, _C))
-        h_loc = hs[:local_bits]
-        ph_loc = phis[: local_bits - 1]
-
-        if p > 0.0:
-            def sample(key):
-                _, zm, _, csum = presample_noise(key, p, T, L)
-                rows = jax.vmap(
-                    lambda z, sg: pack_cycle_params_compact(
-                        z, sg, h_loc, ph_loc, local_bits,
-                        width=width))(zm, csum)
-                return rows, zm, csum
-
-            rows, zm, csum = jax.vmap(sample)(keys)  # (n,T,width), (n,T) x2
-        else:
-            row = pack_cycle_params_compact(
-                jnp.uint32(0), jnp.uint32(0), h_loc, ph_loc, local_bits,
-                width=width)
-            rows = jnp.broadcast_to(row, (n, T, width))
-            zm = csum = jnp.zeros((n, T), jnp.uint32)
-
-        def body(st, inp):
-            row_t, zm_t, sig_t = inp
-            if use_hi:
-                st, a_part = hi_cycle_forward_apply(
-                    st, row_t, u7r, u7i, utr, uti, L=local_bits, q=q,
-                    interpret=interpret)
-                if split_state:
-                    st = tuple(s.reshape(n, TOP, _C) for s in st)
-                else:
-                    st = st.reshape(n, 2, TOP, _C)
-            else:
-                st, a_part = cycle_forward_apply(
-                    st, row_t, u7r, u7i, utr, uti, L=local_bits, q=q,
-                    interpret=interpret)
-            if k_bits:
-                st = _on_fused(st, split_state, lambda stf: _global_cycle_tail(
-                    stf, zm_t, sig_t, hs, phis, theta, L=L,
-                    local_bits=local_bits, n_amp=n_amp))
-            return st, jax.lax.psum(a_part, "amp")
-
-        # only T-1 cycles are needed for A(0..T-1) — A(0) is analytic
-        xs = (jnp.swapaxes(rows, 0, 1)[: T - 1], zm.T[: T - 1],
-              csum.T[: T - 1])
-        _, a_frames = jax.lax.scan(body, state0, xs)  # (T-1, n) = A(1..T-1)
-
-        # A(t >= 1) carries the sigma sign at measurement time (csum after
-        # cycle t-1); A(0) = af analytically (basis initial state)
-        sq = (1 - 2 * ((csum >> q) & jnp.uint32(1)).astype(jnp.int32)
-              ).astype(jnp.float32)                    # (n, T)
-        a_traj = af * s0 * sq[:, : T - 1] * a_frames.T  # (n, T-1)
-        a_traj = jnp.concatenate(
-            [jnp.full((n, 1), af, jnp.float32), a_traj], axis=1)
-        total = jax.lax.psum(jnp.sum(a_traj, axis=0), "traj")
-        return total / (n * n_traj_dev)
-
-    fn = shard_map(
-        local_fn,
-        mesh=mesh,
-        in_specs=(P(), P(), P(), P("traj", None)),
-        out_specs=P(),
-        check_vma=False,
-    )
-    return _check_constant_x(jax.jit(fn))
-
-
-def make_sharded_echo_kernel(
-    mesh, *, L, T, p, q, initial_state="vacuum", ancilla_factor=None,
-    interpret=False,
-):
-    """Cycle-kernel sharded echo A0(t) (docs/PERFORMANCE.md roadmap #5):
-    fixed-length masked 2T scan where each ACTIVE step runs the shard-local
-    work as ONE fused Pallas call — forward steps the post-fold cycle
-    kernel, inverse steps the PRE-fold kernel
-    (ops/pallas_cycle.cycle_inverse_apply) inside the once-conjugated
-    frame: at the turnaround the imaginary plane is negated ONCE, after
-    which every physical U_j^dag equals the UN-negated forward operator
-    (RX kicks and diagonals are symmetric: (D K)^dag = conj(K D)), run in
-    reverse time order; |amp|^2 observables are conjugation-invariant so
-    the state is never conjugated back. Echo semantics per the reference
-    (autocorr-delta-a-single-qiskit-fast.py:140-147).
-
-    Step words (the pre-fold deferral rule, eager-correction convention of
-    the resident kernels — no pend_sig carry): forward step k folds
-    (zm[k], csum[k]) post-kick exactly like the forward builder; inverse
-    step k folds (zm[k-1], sig_b[k]) PRE-kick — the previous event's
-    Z-sign (diagonal, deferred across the step boundary) and the diagonal
-    evaluated at this step's pre-event sigma. The FIRST inverse step
-    carries zm=0 (the last forward step already applied its own event's
-    Z-sign), and the last inverse event's Z-sign is dropped (pure sign
-    before an |amp|^2 measurement); its X-part reaches the measurement via
-    sigma_final. Global (shard-bit) ops ride XLA inside the same switch
-    branch: forward kick-then-diag AFTER the kernel, inverse diag-then-kick
-    BEFORE it (_global_cycle_head). Padding steps are a no-op branch —
-    no kernel, no ppermutes, no phases.
-
-    Same signature as make_sharded_echo: fn(angles, hs, phis,
-    keys (n_traj,2), t_value) -> scalar; requires a constant x-only
-    schedule, shard-local probe q < L_loc, and 17 <= L_loc <= 29
-    (L_loc = L - log2(n_amp); L_loc >= 24 rides
-    the r2-blocked HBM-streamed per-shard kernels, ops/pallas_cycle_hi —
-    see make_sharded_autocorr_forward_kernel; DTC_TPU_SHARDED_HI_MIN_LB
-    lowers the crossover to 22 for cross-checks).
-    """
-    from dtc_tpu.ops.pallas_cycle import cycle_forward_apply, cycle_inverse_apply
-    from dtc_tpu.ops.pallas_cycle_hi import (
-        hi_cycle_forward_apply,
-        hi_cycle_inverse_apply,
-    )
-    from dtc_tpu.ops.pallas_noise import pack_cycle_params_compact
-    from dtc_tpu.ops.pallas_resident import _C, _kick_matrices
-    from dtc_tpu.ops.pallas_streamed import _rx_kron
-
-    n_amp = mesh.shape["amp"]
-    n_traj_dev = mesh.shape["traj"]
-    k_bits = int(np.log2(n_amp))
-    local_bits = L - k_bits
-    if not (17 <= local_bits <= 30):
-        raise ValueError(
-            f"cycle-kernel sharding needs 17 <= L - log2(n_amp) <= 30 "
-            f"(got L={L}, n_amp={n_amp}: local_bits={local_bits})")
-    if not (0 <= q < local_bits):
-        raise ValueError(
-            "cycle-kernel sharding requires a shard-local probe qubit "
-            f"q < L - log2(n_amp) = {local_bits} (got q={q})")
-    use_hi = local_bits >= max(
-        22, int(os.environ.get("DTC_TPU_SHARDED_HI_MIN_LB", "24")))
-    split_state = use_hi and local_bits >= _hi_split_min_lb()
-    width = 128 if 5 * local_bits - 2 <= 128 else 256
-    M = 1 << local_bits
-    TOP = M // _C
-    af = ((1.0 - p) ** 6 if p > 0 else 1.0
-          ) if ancilla_factor is None else ancilla_factor
-    init_idx = 0 if initial_state == "vacuum" else neel_index(L)
-    s0 = 1.0 if ((init_idx >> q) & 1) == 0 else -1.0
-    T2 = 2 * T
-
-    def local_fn(angles, hs, phis, keys, t_value):
-        from dtc_tpu.core.sigma_evolve import (
-            _codes_from_uniform,
-            _masks_from_codes,
-        )
-
-        theta = angles[0, 0, 0]
-        if use_hi:
-            u7r, u7i = (m[None] for m in _rx_kron(theta, 7))
-            utr, uti = (m[None] for m in _rx_kron(theta, local_bits - 21))
-        else:
-            u7r, u7i, utr, uti = _kick_matrices(
-                angles, local_bits, TOP, time_dependent=False)
-        offset = (jax.lax.axis_index("amp") * M).astype(jnp.uint32)
-        gidx = (jnp.arange(M, dtype=jnp.uint32) + offset).reshape(TOP, _C)
-        plane0 = (gidx == jnp.uint32(init_idx)).astype(jnp.float32)
-        zq = z_sign_mask(q, L, offset=offset, size=M).astype(
-            jnp.float32).reshape(TOP, _C)
-        n = keys.shape[0]
-        if split_state:
-            state0 = (jnp.broadcast_to(plane0[None], (n, TOP, _C)),
-                      jnp.zeros((n, TOP, _C), jnp.float32))
-        else:
-            state0 = jnp.broadcast_to(
-                jnp.stack([plane0, jnp.zeros_like(plane0)])[None],
-                (n, 2, TOP, _C))
-        h_loc = hs[:local_bits]
-        ph_loc = phis[: local_bits - 1]
-        step = jnp.arange(T2)
-
-        def sample(key):
-            # identical uniform draw to make_sharded_echo (K=1) so the two
-            # engines agree trajectory-for-trajectory with the same keys
-            if p > 0.0:
-                u = jax.random.uniform(key, (T2, 1, L), dtype=jnp.float32)
-                codes = _codes_from_uniform(u, p)
-                codes = jnp.where((step < 2 * t_value)[:, None, None],
-                                  codes, 0)
-                xm, zm = _masks_from_codes(codes, L)
-                xm, zm = xm[:, 0], zm[:, 0]
-                csum = jax.lax.associative_scan(jnp.bitwise_xor, xm)
-                sig_b = jnp.concatenate(
-                    [jnp.zeros((1,), jnp.uint32), csum[:-1]])
-            else:
-                zm = csum = sig_b = jnp.zeros((T2,), jnp.uint32)
-            zm_prev = jnp.concatenate([jnp.zeros((1,), jnp.uint32), zm[:-1]])
-            zm_prev = jnp.where(step == t_value, jnp.uint32(0), zm_prev)
-            pack = lambda z, sg: pack_cycle_params_compact(  # noqa: E731
-                z, sg, h_loc, ph_loc, local_bits, width=width)
-            rows_f = jax.vmap(pack)(zm, csum)        # (T2, 128)
-            rows_i = jax.vmap(pack)(zm_prev, sig_b)  # (T2, 128)
-            return rows_f, rows_i, zm, zm_prev, sig_b, csum
-
-        rows_f, rows_i, zm, zm_prev, sig_b, csum = jax.vmap(sample)(keys)
-        conj_vec = jnp.asarray([1.0, -1.0], jnp.float32).reshape(1, 2, 1, 1)
-
-        def br_fwd(op):
-            st, row_f, row_i, zm_k, zmp_k, sigb_k, csum_k = op
-            if use_hi:
-                # slots=2: the echo switch co-allocates this kernel's
-                # scoped VMEM with the inverse kernel's (measured OOM by
-                # 1.75M at L_loc=24 with the forward default of 4)
-                st, _ = hi_cycle_forward_apply(
-                    st, row_f, u7r, u7i, utr, uti, L=local_bits, q=q,
-                    interpret=interpret, slots=2)
-                if split_state:
-                    st = tuple(s.reshape(n, TOP, _C) for s in st)
-                else:
-                    st = st.reshape(n, 2, TOP, _C)
-            else:
-                st, _ = cycle_forward_apply(
-                    st, row_f, u7r, u7i, utr, uti, L=local_bits, q=q,
-                    interpret=interpret)
-            if k_bits:
-                st = _on_fused(st, split_state, lambda stf: _global_cycle_tail(
-                    stf, zm_k, csum_k, hs, phis, theta, L=L,
-                    local_bits=local_bits, n_amp=n_amp))
-            return st
-
-        def br_inv(op, first):
-            st, row_f, row_i, zm_k, zmp_k, sigb_k, csum_k = op
-            if first:
-                # the single turnaround conjugation
-                st = (st[0], -st[1]) if split_state else st * conj_vec
-            if k_bits:
-                st = _on_fused(st, split_state, lambda stf: _global_cycle_head(
-                    stf, zmp_k, sigb_k, hs, phis, theta, L=L,
-                    local_bits=local_bits, n_amp=n_amp))
-            if use_hi:
-                st = hi_cycle_inverse_apply(
-                    st, row_i, u7r, u7i, utr, uti, L=local_bits,
-                    interpret=interpret, slots=2)
-                if split_state:
-                    return tuple(s.reshape(n, TOP, _C) for s in st)
-                return st.reshape(n, 2, TOP, _C)
-            return cycle_inverse_apply(st, row_i, u7r, u7i, utr, uti,
-                                       L=local_bits, interpret=interpret)
-
-        def body(st, inp):
-            k, op_rest = inp
-            op = (st,) + op_rest
-            fwd = k < t_value
-            act = k < 2 * t_value
-            kind = jnp.where(fwd, 0,
-                             jnp.where(~act, 3,
-                                       jnp.where(k == t_value, 1, 2)))
-            st = jax.lax.switch(
-                kind,
-                [br_fwd, functools.partial(br_inv, first=True),
-                 functools.partial(br_inv, first=False), lambda op: op[0]],
-                op)
-            return st, None
-
-        xs = (step, (jnp.swapaxes(rows_f, 0, 1), jnp.swapaxes(rows_i, 0, 1),
-                     zm.T, zm_prev.T, sig_b.T, csum.T))
-        st, _ = jax.lax.scan(body, state0, xs)
-
-        sigma_fin = csum[:, -1]
-        sq = (1 - 2 * ((sigma_fin >> q) & jnp.uint32(1)).astype(jnp.int32)
-              ).astype(jnp.float32)
-        st_re, st_im = st if split_state else (st[:, 0], st[:, 1])
-        part = jnp.sum((st_re ** 2 + st_im ** 2) * zq, axis=(1, 2))
-        e_traj = af * s0 * sq * jax.lax.psum(part, "amp")
-        total = jax.lax.psum(jnp.sum(e_traj), "traj")
-        return total / (n * n_traj_dev)
-
-    fn = shard_map(
-        local_fn,
-        mesh=mesh,
-        in_specs=(P(), P(), P(), P("traj", None), P()),
-        out_specs=P(),
-        check_vma=False,
-    )
-    return _check_constant_x(jax.jit(fn))
-
-
-def _global_general_slot_kick(st, tx, ty, sig_w, zmp_w, *, local_bits,
-                              n_amp, dagger=False):
-    """Per-trajectory sigma-conjugated slot kick (RY(±ty)RX(tx)) on every
-    shard-id bit, with the PREVIOUS event's global Z-signs folded into the
-    2x2 columns (the deferral rule of _sharded_kick_factored). The ±ty
-    sign is the trajectory's shard-bit XOR frame at this slot (X RY X =
-    RY(-ty)); pure-x drives reduce to _global_shard_kicks' math.
-    ``dagger`` applies the DAGGERED slot unitary (X^s U X^s)^dag =
-    X^s U^dag X^s — the general echo's inverse steps (conj-transpose of
-    the forward entries; the column Z-fold placement is unchanged because
-    the deferred previous event precedes the kick in both directions).
-    st (n,2,TOP,C); tx/ty traced scalars; sig_w/zmp_w (n,) uint32."""
-    aidx = jax.lax.axis_index("amp")
-    cx = jnp.cos(tx / 2).astype(jnp.float32)
-    sx = jnp.sin(tx / 2).astype(jnp.float32)
-    for gb in range(int(np.log2(n_amp))):
-        qq = local_bits + gb
-        ysign = 1.0 - 2.0 * ((sig_w >> qq) & 1).astype(jnp.float32)   # (n,)
-        cy = jnp.cos(ysign * ty / 2).astype(jnp.float32)
-        sy = jnp.sin(ysign * ty / 2).astype(jnp.float32)
-        # slot_unitary planar entries (models.drives closed form):
-        # u00=(cy cx, sy sx) u01=(-sy cx, -cy sx) u10=(sy cx, -cy sx)
-        # u11=(cy cx, -sy sx); column scaling B = U diag(1, f1)
-        f1 = 1.0 - 2.0 * ((zmp_w >> qq) & 1).astype(jnp.float32)
-        mybit = (aidx >> gb) & 1
-        if dagger:
-            # conj-transpose: u00d=(cy cx,-sy sx) u01d=(sy cx, cy sx)
-            # u10d=(-sy cx, cy sx) u11d=(cy cx, sy sx)
-            dr = jnp.where(mybit == 0, cy * cx, cy * cx * f1)
-            di = jnp.where(mybit == 0, -sy * sx, sy * sx * f1)
-            orr = jnp.where(mybit == 0, sy * cx * f1, -sy * cx)
-            oii = jnp.where(mybit == 0, cy * sx * f1, cy * sx)
-        else:
-            dr = jnp.where(mybit == 0, cy * cx, cy * cx * f1)
-            di = jnp.where(mybit == 0, sy * sx, -sy * sx * f1)
-            orr = jnp.where(mybit == 0, -sy * cx * f1, sy * cx)
-            oii = jnp.where(mybit == 0, -cy * sx * f1, -cy * sx)
-        partner = jax.lax.ppermute(st, "amp", _xor_perm(n_amp, gb))
-        shape = (-1, 1, 1)
-        dr, di, orr, oii = (a.reshape(shape) for a in (dr, di, orr, oii))
-        st = jnp.stack([
-            dr * st[:, 0] - di * st[:, 1]
-            + orr * partner[:, 0] - oii * partner[:, 1],
-            dr * st[:, 1] + di * st[:, 0]
-            + orr * partner[:, 1] + oii * partner[:, 0],
-        ], axis=1)
-    return st
-
-
-def make_sharded_autocorr_forward_general(
-    mesh, *, L, T, K, p, q, initial_state="vacuum", ancilla_factor=None,
-    interpret=False, device=None,
-):
-    """LAB-frame cycle-kernel sharded forward autocorrelator for EVERY
-    polarization family and per-cycle schedule (y/xy/yx/circular/xy_cycle,
-    adaptive-g) — multi-chip runs of these drives previously fell to the
-    XLA sharded engine (VERDICT r2 missing #5; the reference's
-    time-dependent circular drives are
-    autocorr-delta-a-single-qiskit-fast-circular-polarization.py:110-142).
-
-    Hybrid frame: the shard-LOCAL work of each cycle (K lab-frame kick
-    slots with X-mask row folds + the folded local diagonal + the fused
-    A(t) partial sum) runs as ONE Pallas call per cycle
-    (ops/pallas_cycle.general_cycle_forward_apply); the shard-id bits keep
-    an XOR noise frame so sampled global X's cost nothing, with the
-    global slot kicks sigma-conjugated per trajectory
-    (_global_general_slot_kick) and the cycle's global diagonal evaluated
-    at the cycle-end frame (sig words masked to shard bits — local bits
-    are lab-frame, never shifted).
-
-    Same signature/semantics as make_sharded_autocorr_forward; matches it
-    trajectory-for-trajectory (identical uniform draws) at the bf16x3 dot
-    level. Requires a shard-local probe q < L - log2(n_amp) and
-    17 <= L - log2(n_amp) <= 29: shards through 23 ride the VMEM-resident
-    general per-shard kernel (ops/pallas_cycle), 24..29 the r2-blocked
-    HBM-streamed general kernel (ops/pallas_cycle_hi_general;
-    DTC_TPU_SHARDED_HI_MIN_LB lowers the crossover to 22 for
-    cross-checks) — kernel-rate general-drive sharding up to
-    L = 29 + log2(n_amp).
-
-    `device=(p_1q (L,), p_2q (L-1,), events_per_kick)` replaces the
-    depolarizing draw with DEVICE-noise rows (core.device_evolve.
-    _device_general_rows: composed per-slot Pauli masks + bond-parity
-    sign-flipped final-slot phi rows — the same commutation algebra as
-    device_general_kernel_forward_batch, so the kernels run unchanged).
-    Requires p == 0. n_amp >= 2 works (round 5; previously a hard
-    n_amp == 1 restriction): the composed event masks' SHARD-BIT parts
-    ride the exact global bookkeeping of the depolarizing branch — X
-    parts deferred into the XOR frame (sig_b conjugating the global slot
-    kicks), Z parts through the zm_prev column fold and the cycle-end
-    global diagonal — while the device commutation's bond-sign flips
-    reach the global/boundary bonds through per-cycle phi diagonal rows
-    fed to _tail_phase_angles (the frame-conjugation flips multiply on
-    top). Trajectory-exact vs the dense original-order oracle at
-    n_amp=2 in interpret mode (tests/test_sharded_kernel.py). This is
-    the device-noise route for general polarizations past the
-    dense-gather cliff, single-chip (1,1) at 24 <= L <= 29 and
-    amplitude-sharded to L = 29 + log2(n_amp) (reference device mode
-    autocorr-delta-a-single-qiskit-fast.py:77-79 crossed with its
-    general drives …-circular-polarization.py:110-142).
-    """
-    from dtc_tpu.core.sigma_evolve import _codes_from_uniform, _masks_from_codes
-    from dtc_tpu.ops.pallas_cycle import general_cycle_forward_apply
-    from dtc_tpu.ops.pallas_cycle_hi_general import (
-        general_hi_cycle_forward_apply,
-        general_hi_width,
-    )
-    from dtc_tpu.ops.pallas_resident import _C
-    from dtc_tpu.ops.pallas_resident_general import (
-        _LANE_U8,
-        _bits_row,
-        slot_u8,
-    )
-
-    n_amp = mesh.shape["amp"]
-    n_traj_dev = mesh.shape["traj"]
-    k_bits = int(np.log2(n_amp))
-    local_bits = L - k_bits
-    if not (17 <= local_bits <= 30):
-        raise ValueError(
-            f"general cycle-kernel sharding needs 17 <= L - log2(n_amp) "
-            f"<= 30 (got L={L}, n_amp={n_amp}: local_bits={local_bits})")
-    if not (0 <= q < local_bits):
-        raise ValueError(
-            "cycle-kernel sharding requires a shard-local probe qubit "
-            f"q < L - log2(n_amp) = {local_bits} (got q={q})")
-    use_hi = local_bits >= max(
-        22, int(os.environ.get("DTC_TPU_SHARDED_HI_MIN_LB", "24")))
-    split_state = use_hi and local_bits >= _hi_split_min_lb()
-    width = general_hi_width(local_bits) if use_hi else 128
-    M = 1 << local_bits
-    TOP = M // _C
-    af = ((1.0 - p) ** 6 if p > 0 else 1.0
-          ) if ancilla_factor is None else ancilla_factor
-    init_idx = 0 if initial_state == "vacuum" else neel_index(L)
-    s0 = 1.0 if ((init_idx >> q) & 1) == 0 else -1.0
-    S = T * K
-    gmask = jnp.uint32(((1 << L) - 1) & ~(M - 1))
-    if device is not None:
-        if p != 0.0:
-            raise ValueError("device mode replaces depolarizing noise; "
-                             "pass p=0")
-        from dtc_tpu.core.device_evolve import _device_general_rows
-        dev_p1 = jnp.asarray(device[0], jnp.float32)
-        dev_p2 = jnp.asarray(device[1], jnp.float32)
-        dev_epk = int(device[2])
-
-    def local_fn(angles, hs, phis, keys):
-        u8 = jax.vmap(jax.vmap(lambda a: slot_u8(a[0], a[1])))(angles)
-        FL = width - (4 * local_bits - 1)
-        flags = jnp.zeros((T, K, FL), jnp.float32)
-        flags = flags.at[:, :, _LANE_U8:_LANE_U8 + 8].set(u8)
-        h_loc = hs[:local_bits].astype(jnp.float32)
-        ph_loc = phis[: local_bits - 1].astype(jnp.float32)
-        final = jnp.zeros((T, K, 1), jnp.float32).at[:, K - 1, :].set(1.0)
-        hrow = final * h_loc[None, None]
-        prow = final * ph_loc[None, None]
-        offset = (jax.lax.axis_index("amp") * M).astype(jnp.uint32)
-        gidx = (jnp.arange(M, dtype=jnp.uint32) + offset).reshape(TOP, _C)
-        plane0 = (gidx == jnp.uint32(init_idx)).astype(jnp.float32)
-        n = keys.shape[0]
-        if split_state:
-            state0 = (jnp.broadcast_to(plane0[None], (n, TOP, _C)),
-                      jnp.zeros((n, TOP, _C), jnp.float32))
-        else:
-            state0 = jnp.broadcast_to(
-                jnp.stack([plane0, jnp.zeros_like(plane0)])[None],
-                (n, 2, TOP, _C))
-
-        def sample(key):
-            if device is not None:
-                # device-noise rows: composed per-slot masks + sign-flipped
-                # final-slot phi rows (same presample as the oracle in
-                # core.device_evolve — trajectory-exact validation). The
-                # masks' shard-bit parts take the SAME deferral bookkeeping
-                # as the depolarizing branch below; the sign-adjusted phi
-                # row additionally rides to the global diagonal per cycle.
-                zm, xm, phi_rows = _device_general_rows(
-                    key, phis.astype(jnp.float32), dev_p1, dev_p2,
-                    dev_epk, T, K, L)              # (S,), (S,), (S, L-1)
-                csum = jax.lax.associative_scan(jnp.bitwise_xor, xm)
-                sig_b = jnp.concatenate(
-                    [jnp.zeros((1,), jnp.uint32), csum[:-1]])
-                zm_prev = jnp.concatenate(
-                    [jnp.zeros((1,), jnp.uint32), zm[:-1]])
-                zmb = _bits_row(zm & jnp.uint32(M - 1), local_bits
-                                ).reshape(T, K, local_bits)
-                xmb = _bits_row(xm & jnp.uint32(M - 1), local_bits
-                                ).reshape(T, K, local_bits)
-                phi_tk = phi_rows.reshape(T, K, L - 1)
-                tiles = jnp.concatenate(
-                    [zmb, xmb, hrow, phi_tk[..., : local_bits - 1], flags],
-                    axis=-1)
-                return (tiles, sig_b.reshape(T, K), zm_prev.reshape(T, K),
-                        zm.reshape(T, K)[:, K - 1],
-                        csum.reshape(T, K)[:, K - 1], phi_tk[:, K - 1])
-            # same uniform draw as general_forward_batch / sigma engine
-            if p > 0.0:
-                u = jax.random.uniform(key, (S, L), dtype=jnp.float32)
-                codes = _codes_from_uniform(u, p)
-                xm, zm = _masks_from_codes(codes, L)
-            else:
-                xm = zm = jnp.zeros((S,), jnp.uint32)
-            csum = jax.lax.associative_scan(jnp.bitwise_xor, xm)
-            sig_b = jnp.concatenate([jnp.zeros((1,), jnp.uint32), csum[:-1]])
-            zm_prev = jnp.concatenate([jnp.zeros((1,), jnp.uint32), zm[:-1]])
-            zmb = _bits_row(zm & jnp.uint32(M - 1), local_bits
-                            ).reshape(T, K, local_bits)
-            xmb = _bits_row(xm & jnp.uint32(M - 1), local_bits
-                            ).reshape(T, K, local_bits)
-            tiles = jnp.concatenate([zmb, xmb, hrow, prow, flags], axis=-1)
-            return (tiles, sig_b.reshape(T, K), zm_prev.reshape(T, K),
-                    zm.reshape(T, K)[:, K - 1], csum.reshape(T, K)[:, K - 1])
-
-        outs = jax.vmap(sample)(keys)
-        if device is not None:
-            tiles, sig_b, zm_prev, zm_fin, csum_fin, phi_fin = outs
-        else:
-            (tiles, sig_b, zm_prev, zm_fin, csum_fin), phi_fin = outs, None
-
-        def body(st, inp):
-            if device is not None:
-                ang, tiles_t, sigb_t, zmp_t, zmf_t, csf_t, phf_t = inp
-            else:
-                ang, tiles_t, sigb_t, zmp_t, zmf_t, csf_t = inp
-                phf_t = phis
-            if use_hi:
-                st, a_part = general_hi_cycle_forward_apply(
-                    st, tiles_t, L=local_bits, K=K, q=q,
-                    interpret=interpret)
-                if split_state:
-                    st = tuple(s.reshape(n, TOP, _C) for s in st)
-                else:
-                    st = st.reshape(n, 2, TOP, _C)
-            else:
-                st, a_part = general_cycle_forward_apply(
-                    st, tiles_t, L=local_bits, K=K, q=q, interpret=interpret)
-            if k_bits:
-                def _tail(stf):
-                    for k in range(K):
-                        stf = _global_general_slot_kick(
-                            stf, ang[k, 0], ang[k, 1], sigb_t[:, k],
-                            zmp_t[:, k], local_bits=local_bits,
-                            n_amp=n_amp)
-                    return _global_diag(stf, zmf_t & gmask, csf_t & gmask,
-                                        hs, phf_t, L=L,
-                                        local_bits=local_bits)
-
-                st = _on_fused(st, split_state, _tail)
-            return st, jax.lax.psum(a_part, "amp")
-
-        xs = (angles[: T - 1], jnp.swapaxes(tiles, 0, 1)[: T - 1],
-              jnp.swapaxes(sig_b, 0, 1)[: T - 1],
-              jnp.swapaxes(zm_prev, 0, 1)[: T - 1],
-              zm_fin.T[: T - 1], csum_fin.T[: T - 1])
-        if device is not None:
-            xs = xs + (jnp.swapaxes(phi_fin, 0, 1)[: T - 1],)
-        _, a_frames = jax.lax.scan(body, state0, xs)  # (T-1, n)
-
-        a_traj = af * s0 * a_frames.T                 # (n, T-1); no sigma
-        a_traj = jnp.concatenate(                     # sign: q is lab-frame
-            [jnp.full((n, 1), af, jnp.float32), a_traj], axis=1)
-        total = jax.lax.psum(jnp.sum(a_traj, axis=0), "traj")
-        return total / (n * n_traj_dev)
-
-    fn = shard_map(
-        local_fn,
-        mesh=mesh,
-        in_specs=(P(), P(), P(), P("traj", None)),
-        out_specs=P(),
-        check_vma=False,
-    )
-    return jax.jit(fn)
-
-
-def make_sharded_echo_general(
-    mesh, *, L, T, K, p, q, initial_state="vacuum", ancilla_factor=None,
-    interpret=False, device=None,
-):
-    """LAB-frame cycle-kernel sharded echo A0(t) for EVERY polarization
-    family and per-cycle schedule — the echo half of multi-chip
-    y/xy/yx/circular/xy_cycle and adaptive-g studies previously fell to
-    the XLA sharded engine (the general counterpart of
-    make_sharded_echo_kernel; reference echo semantics with reversed
-    per-cycle schedules:
-    autocorr-delta-a-single-qiskit-fast-circular-polarization.py:164-172).
-
-    Fixed-length masked 2T switch scan. Forward steps run the forward
-    hybrid's body (general_cycle_forward_apply + sigma-conjugated global
-    slot kicks + eager global diagonal). Inverse steps have NO conjugation
-    trick (Y-containing slot kicks are not symmetric): the global head
-    applies the DAGGERED diagonal (_global_diag_inv, evaluated at the
-    step's pre-event sigma with the previous event's deferred Z word,
-    zeroed at the turnaround) then the daggered global slot kicks in
-    REVERSED slot order; the local half is ONE
-    ops/pallas_cycle.general_cycle_inverse_apply call per step with
-    (pre, post) compact rows built exactly like
-    pallas_resident_general.general_echo_batch.tiles_one's inverse steps
-    restricted to local bits. Padding steps are a no-op branch.
-
-    Same signature as make_sharded_echo: fn(angles, hs, phis,
-    keys (n_traj,2), t_value) -> scalar; requires a shard-local probe
-    q < L - log2(n_amp) and 17 <= L - log2(n_amp) <= 29 (shards past the
-    VMEM kernel's 23 ride the r2-blocked HBM-streamed general kernels,
-    ops/pallas_cycle_hi_general; DTC_TPU_SHARDED_HI_MIN_LB lowers the
-    crossover to 22 for cross-checks). Matches make_sharded_echo
-    trajectory-for-trajectory (identical uniform draws).
-    """
-    from dtc_tpu.core.sigma_evolve import _codes_from_uniform, _masks_from_codes
-    from dtc_tpu.ops.pallas_cycle import (
-        general_cycle_forward_apply,
-        general_cycle_inverse_apply,
-    )
-    from dtc_tpu.ops.pallas_cycle_hi_general import (
-        general_hi_cycle_forward_apply,
-        general_hi_cycle_inverse_apply,
-        general_hi_width,
-    )
-    from dtc_tpu.ops.pallas_resident import _C
-    from dtc_tpu.ops.pallas_resident_general import (
-        _LANE_U8,
-        _bits_row,
-        slot_u8,
-    )
-
-    n_amp = mesh.shape["amp"]
-    n_traj_dev = mesh.shape["traj"]
-    k_bits = int(np.log2(n_amp))
-    local_bits = L - k_bits
-    if not (17 <= local_bits <= 30):
-        raise ValueError(
-            f"general cycle-kernel sharding needs 17 <= L - log2(n_amp) "
-            f"<= 30 (got L={L}, n_amp={n_amp}: local_bits={local_bits})")
-    if not (0 <= q < local_bits):
-        raise ValueError(
-            "cycle-kernel sharding requires a shard-local probe qubit "
-            f"q < L - log2(n_amp) = {local_bits} (got q={q})")
-    use_hi = local_bits >= max(
-        22, int(os.environ.get("DTC_TPU_SHARDED_HI_MIN_LB", "24")))
-    split_state = use_hi and local_bits >= _hi_split_min_lb()
-    width = general_hi_width(local_bits) if use_hi else 128
-    M = 1 << local_bits
-    TOP = M // _C
-    af = ((1.0 - p) ** 6 if p > 0 else 1.0
-          ) if ancilla_factor is None else ancilla_factor
-    init_idx = 0 if initial_state == "vacuum" else neel_index(L)
-    s0 = 1.0 if ((init_idx >> q) & 1) == 0 else -1.0
-    T2 = 2 * T
-    gmask = jnp.uint32(((1 << L) - 1) & ~(M - 1))
-    mlow = jnp.uint32(M - 1)
-    if device is not None:
-        # device-noise rows (see make_sharded_autocorr_forward_general):
-        # n_amp >= 2 rides the depolarizing branch's global bookkeeping —
-        # composed masks' shard-bit X parts into the XOR frame, Z parts
-        # through zm_prev/zm_fin — while the rows' baked commutation signs
-        # reach the global/boundary diagonal as per-step h/phi rows (the
-        # frame flips compose by XOR on top: conj_sig(conj_m(D)) =
-        # conj_{sig^m}(D), so baked rows + full-frame flips are exact)
-        if p != 0.0:
-            raise ValueError("device mode replaces depolarizing noise; "
-                             "pass p=0")
-        from dtc_tpu.core.device_evolve import _device_general_echo_rows
-        dev_p1 = jnp.asarray(device[0], jnp.float32)
-        dev_p2 = jnp.asarray(device[1], jnp.float32)
-        dev_epk = int(device[2])
-
-    def local_fn(angles, hs, phis, keys, t_value):
-        step = jnp.arange(T2)
-        fwd = step < t_value
-        active = step < 2 * t_value
-        # cycle index: forward i = step, inverse i = 2t-1-step (reversed
-        # time order for time-dependent schedules)
-        ci = jnp.where(fwd, jnp.minimum(step, T - 1),
-                       jnp.clip(2 * t_value - 1 - step, 0, T - 1))
-        ang_c = jnp.take(angles, ci, axis=0)                 # (T2, K, 2)
-        # processed-slot angles: forward slot j = cycle slot j, inverse
-        # slot j = cycle slot K-1-j (daggered in-branch)
-        ang_step = jnp.where(fwd[:, None, None], ang_c,
-                             jnp.flip(ang_c, axis=1))
-        u8f = jax.vmap(jax.vmap(lambda a: slot_u8(a[0], a[1])))(ang_c)
-        u8i = jax.vmap(jax.vmap(
-            lambda a: slot_u8(a[0], a[1], inverse=True)))(
-                jnp.flip(ang_c, axis=1))                     # (T2, K, 8)
-
-        FL = width - (4 * local_bits - 1)
-        h_loc = hs[:local_bits].astype(jnp.float32)
-        ph_loc = phis[: local_bits - 1].astype(jnp.float32)
-        flags_f = jnp.zeros((T2, K, FL), jnp.float32
-                            ).at[:, :, _LANE_U8:_LANE_U8 + 8].set(u8f)
-        flags_i = jnp.zeros((T2, K, FL), jnp.float32
-                            ).at[:, :, _LANE_U8:_LANE_U8 + 8].set(u8i)
-        final = jnp.zeros((T2, K, 1), jnp.float32).at[:, K - 1, :].set(1.0)
-        first = jnp.zeros((T2, K, 1), jnp.float32).at[:, 0, :].set(1.0)
-        hrow_f = final * h_loc[None, None]
-        prow_f = final * ph_loc[None, None]
-        hrow_i = -first * h_loc[None, None]    # D0^dag lead, first slot
-        prow_i = -first * ph_loc[None, None]
-        zl = jnp.zeros((T2, K, local_bits), jnp.float32)
-        zp = jnp.zeros((T2, K, local_bits - 1), jnp.float32)
-        zfl = jnp.zeros((T2, K, FL), jnp.float32)
-
-        offset = (jax.lax.axis_index("amp") * M).astype(jnp.uint32)
-        gidx = (jnp.arange(M, dtype=jnp.uint32) + offset).reshape(TOP, _C)
-        plane0 = (gidx == jnp.uint32(init_idx)).astype(jnp.float32)
-        zq = z_sign_mask(q, L, offset=offset, size=M).astype(
-            jnp.float32).reshape(TOP, _C)
-        n = keys.shape[0]
-        if split_state:
-            state0 = (jnp.broadcast_to(plane0[None], (n, TOP, _C)),
-                      jnp.zeros((n, TOP, _C), jnp.float32))
-        else:
-            state0 = jnp.broadcast_to(
-                jnp.stack([plane0, jnp.zeros_like(plane0)])[None],
-                (n, 2, TOP, _C))
-
-        def sample(key):
-            if device is not None:
-                # device-noise (pre, post) rows: forward steps carry the
-                # commuted bond events + sign-conjugated postdiag in the
-                # final slot; inverse steps carry the conjugated D0^dag
-                # prediag in the first slot (same presample as the dense
-                # original-order oracle in core.device_evolve)
-                xk, zk, pre_h, pre_phi, post_h, post_phi = (
-                    _device_general_echo_rows(
-                        key, t_value, hs.astype(jnp.float32),
-                        phis.astype(jnp.float32), dev_p1, dev_p2,
-                        dev_epk, T, K, L))
-                csum = jax.lax.associative_scan(
-                    jnp.bitwise_xor, xk.reshape(-1))
-                sig_b = jnp.concatenate(
-                    [jnp.zeros((1,), jnp.uint32), csum[:-1]]
-                ).reshape(T2, K)
-                zm_prev = jnp.concatenate(
-                    [jnp.zeros((1,), jnp.uint32),
-                     zk.reshape(-1)[:-1]]).reshape(T2, K)
-                # turnaround rule as the depolarizing branch: the last
-                # forward step's final event Z was consumed by that step's
-                # global diagonal (zm_fin), so the first inverse step
-                # defers zero
-                zm_prev = zm_prev.at[:, 0].set(
-                    jnp.where(step == t_value, jnp.uint32(0),
-                              zm_prev[:, 0]))
-                zmb = _bits_row(zk & mlow, local_bits)
-                xmb = _bits_row(xk & mlow, local_bits)
-                hrow_fd = jnp.zeros((T2, K, local_bits), jnp.float32
-                                    ).at[:, K - 1].set(
-                                        post_h[:, :local_bits])
-                prow_fd = jnp.zeros((T2, K, local_bits - 1), jnp.float32
-                                    ).at[:, K - 1].set(
-                                        post_phi[:, : local_bits - 1])
-                hrow_id = jnp.zeros((T2, K, local_bits), jnp.float32
-                                    ).at[:, 0].set(pre_h[:, :local_bits])
-                prow_id = jnp.zeros((T2, K, local_bits - 1), jnp.float32
-                                    ).at[:, 0].set(
-                                        pre_phi[:, : local_bits - 1])
-                rows_f = jnp.concatenate(
-                    [zmb, xmb, hrow_fd, prow_fd, flags_f], axis=-1)
-                pre = jnp.concatenate(
-                    [zl, xmb, hrow_id, prow_id, flags_i], axis=-1)
-                post = jnp.concatenate(
-                    [zmb, zl, 0.0 * hrow_fd, zp, zfl], axis=-1)
-                rows_i = jnp.stack([pre, post], axis=2)
-                return (rows_f, rows_i, sig_b, zm_prev, zk[:, K - 1],
-                        csum.reshape(T2, K)[:, K - 1],
-                        pre_h, pre_phi, post_h, post_phi)
-            # identical uniform draw to make_sharded_echo so the engines
-            # agree trajectory-for-trajectory with the same keys
-            if p > 0.0:
-                u = jax.random.uniform(key, (T2, K, L), dtype=jnp.float32)
-                codes = _codes_from_uniform(u, p)
-                codes = jnp.where(active[:, None, None], codes, 0)
-                xm, zm = _masks_from_codes(codes, L)         # (T2, K)
-            else:
-                xm = zm = jnp.zeros((T2, K), jnp.uint32)
-            csum = jax.lax.associative_scan(
-                jnp.bitwise_xor, xm.reshape(-1))
-            sig_b = jnp.concatenate(
-                [jnp.zeros((1,), jnp.uint32), csum[:-1]]).reshape(T2, K)
-            zm_prev = jnp.concatenate(
-                [jnp.zeros((1,), jnp.uint32),
-                 zm.reshape(-1)[:-1]]).reshape(T2, K)
-            # turnaround: the last forward cycle folded its own final
-            # event eagerly (diag), so the first inverse step defers zero
-            zm_prev = zm_prev.at[:, 0].set(
-                jnp.where(step == t_value, jnp.uint32(0), zm_prev[:, 0]))
-            zmb = _bits_row(zm & mlow, local_bits)
-            xmb = _bits_row(xm & mlow, local_bits)
-            rows_f = jnp.concatenate(
-                [zmb, xmb, hrow_f, prow_f, flags_f], axis=-1)
-            pre = jnp.concatenate([zl, xmb, hrow_i, prow_i, flags_i],
-                                  axis=-1)
-            post = jnp.concatenate([zmb, zl, 0.0 * hrow_f, zp, zfl],
-                                   axis=-1)
-            rows_i = jnp.stack([pre, post], axis=2)   # (T2, K, 2, 128)
-            return (rows_f, rows_i, sig_b, zm_prev,
-                    zm[:, K - 1], csum.reshape(T2, K)[:, K - 1])
-
-        outs = jax.vmap(sample)(keys)
-        if device is not None:
-            (rows_f, rows_i, sig_b, zm_prev, zm_fin, csum_fin,
-             pre_h, pre_phi, post_h, post_phi) = outs
-        else:
-            (rows_f, rows_i, sig_b, zm_prev, zm_fin, csum_fin) = outs
-
-        def br_fwd(op):
-            st, ang_t, rf, ri, sigb, zmp, zmf, csf = op[:8]
-            if use_hi:
-                # slots=2: co-allocated with the inverse kernel in the
-                # echo switch (see make_sharded_echo_kernel)
-                st, _ = general_hi_cycle_forward_apply(
-                    st, rf, L=local_bits, K=K, q=q, interpret=interpret,
-                    slots=2)
-                if split_state:
-                    st = tuple(s.reshape(n, TOP, _C) for s in st)
-                else:
-                    st = st.reshape(n, 2, TOP, _C)
-            else:
-                st, _ = general_cycle_forward_apply(
-                    st, rf, L=local_bits, K=K, q=q, interpret=interpret)
-            if k_bits:
-                def _tail(stf):
-                    for k in range(K):
-                        stf = _global_general_slot_kick(
-                            stf, ang_t[k, 0], ang_t[k, 1], sigb[:, k],
-                            zmp[:, k], local_bits=local_bits, n_amp=n_amp)
-                    if device is not None:
-                        # forward postdiag with the commutation-sign-baked
-                        # rows (turnaround conjugation included); frame
-                        # flips compose by XOR on top
-                        return _global_diag(
-                            stf, zmf & gmask, csf & gmask, op[10], op[11],
-                            L=L, local_bits=local_bits)
-                    return _global_diag(stf, zmf & gmask, csf & gmask, hs,
-                                        phis, L=L, local_bits=local_bits)
-
-                st = _on_fused(st, split_state, _tail)
-            return st
-
-        def br_inv(op):
-            st, ang_t, rf, ri, sigb, zmp, zmf, csf = op[:8]
-            if k_bits:
-                def _head(stf):
-                    if device is not None:
-                        # the D0^dag negation + crossing conjugations are
-                        # BAKED into the pre rows, so the inverse prediag
-                        # is the plain (non-negating) _global_diag over
-                        # them
-                        stf = _global_diag(
-                            stf, zmp[:, 0] & gmask, sigb[:, 0] & gmask,
-                            op[8], op[9], L=L, local_bits=local_bits)
-                    else:
-                        stf = _global_diag_inv(
-                            stf, zmp[:, 0] & gmask, sigb[:, 0] & gmask,
-                            hs, phis, L=L, local_bits=local_bits)
-                    for j in range(K):
-                        zw = (jnp.zeros_like(zmp[:, 0]) if j == 0
-                              else zmp[:, j])
-                        stf = _global_general_slot_kick(
-                            stf, ang_t[j, 0], ang_t[j, 1], sigb[:, j], zw,
-                            local_bits=local_bits, n_amp=n_amp,
-                            dagger=True)
-                    return stf
-
-                st = _on_fused(st, split_state, _head)
-            if use_hi:
-                st = general_hi_cycle_inverse_apply(
-                    st, ri, L=local_bits, K=K, interpret=interpret,
-                    slots=2)
-                if split_state:
-                    return tuple(s.reshape(n, TOP, _C) for s in st)
-                return st.reshape(n, 2, TOP, _C)
-            return general_cycle_inverse_apply(
-                st, ri, L=local_bits, K=K, interpret=interpret)
-
-        def body(st, inp):
-            k, op_rest = inp
-            op = (st,) + op_rest
-            kind = jnp.where(k < t_value, 0,
-                             jnp.where(k < 2 * t_value, 1, 2))
-            st = jax.lax.switch(kind, [br_fwd, br_inv, lambda op: op[0]],
-                                op)
-            return st, None
-
-        ops = (ang_step, jnp.swapaxes(rows_f, 0, 1),
-               jnp.swapaxes(rows_i, 0, 1),
-               jnp.swapaxes(sig_b, 0, 1), jnp.swapaxes(zm_prev, 0, 1),
-               zm_fin.T, csum_fin.T)
-        if device is not None:
-            ops = ops + (jnp.swapaxes(pre_h, 0, 1),
-                         jnp.swapaxes(pre_phi, 0, 1),
-                         jnp.swapaxes(post_h, 0, 1),
-                         jnp.swapaxes(post_phi, 0, 1))
-        xs = (step, ops)
-        st, _ = jax.lax.scan(body, state0, xs)
-
-        st_re, st_im = st if split_state else (st[:, 0], st[:, 1])
-        part = jnp.sum((st_re ** 2 + st_im ** 2) * zq, axis=(1, 2))
-        # q is lab-frame local: no sigma measurement sign
-        e_traj = af * s0 * jax.lax.psum(part, "amp")
-        total = jax.lax.psum(jnp.sum(e_traj), "traj")
-        return total / (n * n_traj_dev)
-
-    fn = shard_map(
-        local_fn,
-        mesh=mesh,
-        in_specs=(P(), P(), P(), P("traj", None), P()),
-        out_specs=P(),
-        check_vma=False,
-    )
-    return jax.jit(fn)
-
-
 def make_sharded_autocorr_forward(
     mesh, *, L, T, K, p, q, initial_state="vacuum", dtype=jnp.complex64,
     ancilla_factor=None, has_y=False,
@@ -1344,10 +218,6 @@ def make_sharded_autocorr_forward(
     per trajectory outside the scan and its X-part deferred into the XOR
     frame (shard-id bits included), so the scan body carries no PRNG, no
     gathers, and no per-string collectives.
-
-    For constant x-only schedules with 17 <= L - log2(n_amp) <= 23 the
-    cycle-kernel variant (make_sharded_autocorr_forward_kernel) runs the
-    local work at Pallas-kernel rate instead of XLA-scan rate.
     """
     from dtc_tpu.core.sigma_evolve import presample_noise
 
@@ -1545,7 +415,7 @@ def make_sharded_observables(
     """Sharded single-state evolution emitting energy and per-qubit <Z_i>.
 
     The amplitude-sharded counterpart of core.evolve.evolve_observables
-    (energy-sweep capability beyond one chip; reference energy path at
+    (energy-sweep capability beyond one card; reference energy path at
     autocorr-delta-a-single-qiskit-fast-energy.py:136-183 is single-GPU).
 
     Returns fn(angles, hs, phis, term_hs, term_phis, x_coeff, keys (n_traj,2))

@@ -2,8 +2,8 @@
 
 The reference's tracing is wall-clock prints per phase
 (autocorr-delta-a-single-qiskit-fast.py:230-237); here the same surface plus
-cycles/sec + effective HBM GB/s estimators (the BASELINE.json metrics) and an
-optional jax.profiler trace hook.
+a cycles/sec estimator (the BASELINE.json metric) and an optional
+jax.profiler trace hook.
 """
 
 from __future__ import annotations
@@ -43,16 +43,3 @@ def jax_trace(trace_dir: str | None):
 def cycles_per_second(n_cycles: int, n_states: int, seconds: float) -> float:
     """Floquet cycle applications per second (the north-star metric)."""
     return n_cycles * n_states / max(seconds, 1e-12)
-
-
-def effective_hbm_gbps(L: int, n_cycles: int, n_states: int, seconds: float,
-                       bytes_per_amp: int = 8, passes_per_cycle: float = None) -> float:
-    """Rough achieved HBM bandwidth for the gate-apply path.
-
-    One cycle touches the state ~(2*ceil(L/7) + 2) times (kick matmul groups
-    read+write, diag read+write); amplitudes are 2**L * bytes_per_amp.
-    """
-    if passes_per_cycle is None:
-        passes_per_cycle = 2 * ((L + 6) // 7) + 2
-    bytes_moved = n_cycles * n_states * passes_per_cycle * (1 << L) * bytes_per_amp
-    return bytes_moved / max(seconds, 1e-12) / 1e9

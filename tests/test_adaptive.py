@@ -188,7 +188,7 @@ def test_make_stepper_selection(monkeypatch):
     from dtc_tpu.experiments import adaptive as ad
 
     hs, phis = generate_disorder(CFG.L, 1, seed=20)
-    # CPU default -> carried
+    # auto -> carried on every backend
     assert isinstance(ad.make_stepper(CFG, hs[0], phis[0]),
                       ad.AdaptiveStepper)
     monkeypatch.setenv("DTC_TPU_ADAPTIVE", "kernel")
@@ -237,9 +237,9 @@ def test_kernel_stepper_echo_schedule_placement(monkeypatch):
         captured["ts"] = np.asarray(ts)
         return jnp.zeros((1, keys.shape[1], 1))
 
-    import dtc_tpu.experiments.engine as eng
+    import dtc_tpu.core.sigma_evolve as se
 
-    monkeypatch.setattr(eng, "_echo_batch", fake_echo_batch)
+    monkeypatch.setattr(se, "sigma_echo_batch", fake_echo_batch)
     g_sched = [0.86, 0.99]
     t_next, g_last = 3, 0.93
     ks.echo_value(t_next - 1, g_sched, g_last, t_next, None)

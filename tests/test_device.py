@@ -278,7 +278,7 @@ def test_device_sigma_engine_matches_gather_engine():
 def test_exact_device_graphs():
     """Exact IBM Eagle 127q / Heron-r1 133q / IQM Garnet 20q graphs, in the
     devices' own numbering (derived from the reference's coordinate tables
-    and explicit connection lists; VERDICT r1 item 10)."""
+    and explicit connection lists)."""
     from dtc_tpu.device.layouts import (
         eagle_coupling,
         garnet_coupling,
@@ -393,51 +393,14 @@ def test_garnet_like_model_and_selector():
         fake_device_model(19, "torino")
 
 
-def test_device_kernel_path_matches_sigma_engine():
-    """Device-noise trajectories on the x-only Pallas kernels (VERDICT r2
-    missing #3): pack_device_cycle_params_compact encodes the per-class
-    sigma checkpoints (even/odd bond sublayers, field) into the unchanged
-    kernel row format — must match device_sigma_forward_batch
-    trajectory-for-trajectory with identical keys. Blocked kernel at its
-    L=17 floor and the streamed ext-rows branch at its L=22 floor (the
-    width-256 L=27 case is TPU-validated in benchmarks/device_l27_probe)."""
-    import pytest as _pytest
-
-    from dtc_tpu.core.device_evolve import (
-        device_kernel_forward_batch,
-        device_sigma_forward_batch,
-    )
-    from dtc_tpu.io.disorder import generate_disorder
-    from dtc_tpu.models.drives import build_kick_schedule
-
-    for L, T in ((17, 3), (22, 2)):
-        hs, phis = generate_disorder(L, 1, seed=4)
-        hsj, phj = jnp.asarray(hs[0]), jnp.asarray(phis[0])
-        # exaggerated, site-varying calibration so events fire densely
-        p1 = jnp.linspace(0.05, 0.3, L)
-        p2 = jnp.linspace(0.1, 0.4, L - 1)
-        sched = build_kick_schedule("x", 0.95, T)
-        keys = jax.random.split(jax.random.PRNGKey(7), 2)
-        kw = dict(L=L, T=T, q=L // 2, ancilla_factor=0.9)
-        a_k = np.asarray(device_kernel_forward_batch(
-            hsj, phj, p1, p2, sched.angles, keys, interpret=True, **kw))
-        a_s = np.asarray(device_sigma_forward_batch(
-            hsj, phj, p1, p2, sched.angles, keys, **kw))
-        assert np.max(np.abs(a_k - a_s)) < 1e-4, (L, a_k, a_s)
-
-    with _pytest.raises(ValueError):
-        device_kernel_forward_batch(hsj, phj, p1, p2, sched.angles, keys,
-                                    L=30, T=T, q=5)
-
-
 def _dense_device_echo_literal(h, ph, p1, p2, theta, key, t_value, *, L, T,
                                q, epk, af):
     """Gate-by-gate dense echo consuming the SAME presampled events as the
-    sigma/kernel device echo paths: kick; 1q events; D_even; even 2q event;
+    sigma device echo path: kick; 1q events; D_even; even 2q event;
     D_odd; odd event; D_field forward, the exact dagger-reversed order
     inverse (device_inverse_cycle). Measures the PHYSICAL state (no sigma
     bookkeeping at all) — the strongest independent check of the frame
-    algebra in device_echo_pair_tiles / device_sigma_echo_batch."""
+    algebra in device_sigma_echo_batch."""
     from dtc_tpu.core.device_evolve import _device_presample_echo, _masks_split
     from dtc_tpu.core.statevector import initial_statevector
     from dtc_tpu.models.drives import slot_unitary, slot_unitary_inverse
@@ -506,106 +469,6 @@ def test_device_sigma_echo_matches_dense_literal():
     np.testing.assert_allclose(e0, af, atol=1e-12)
 
 
-def test_device_kernel_echo_matches_sigma_engine():
-    """Device-noise echo on the UNCHANGED blocked echo kernel (ext_tiles
-    from device_echo_pair_tiles) vs the sigma-frame oracle, identical keys
-    -> identical presampled events, at the blocked kernel's L=17 floor.
-    The streamed ext_tiles branch is covered at L=22 in
-    test_kernel_interpret_parity.py; width=256 device L=27 echo is
-    TPU-validated in benchmarks/device_l27_probe.py."""
-    from dtc_tpu.core.device_evolve import (
-        device_kernel_echo_batch,
-        device_sigma_echo_batch,
-    )
-    from dtc_tpu.io.disorder import generate_disorder
-    from dtc_tpu.models.drives import build_kick_schedule
-
-    L, T = 17, 2
-    hs, phis = generate_disorder(L, 1, seed=12)
-    h, ph = jnp.asarray(hs[0]), jnp.asarray(phis[0])
-    p1 = jnp.linspace(0.05, 0.3, L)
-    p2 = jnp.linspace(0.1, 0.4, L - 1)
-    sched = build_kick_schedule("x", 0.95, T)
-    keys = jax.random.split(jax.random.PRNGKey(7), 2)
-    ts = jnp.asarray([1, 2])
-    kw = dict(L=L, T=T, q=8, ancilla_factor=0.9, events_per_kick=2)
-    a_k = np.asarray(device_kernel_echo_batch(
-        h, ph, p1, p2, sched.angles, keys, ts, interpret=True, **kw))
-    a_s = np.asarray(device_sigma_echo_batch(
-        h, ph, p1, p2, sched.angles, keys, ts, dtype_name="complex128", **kw))
-    assert np.max(np.abs(a_k - a_s)) < 1e-4, (a_k, a_s)
-
-
-def test_device_engine_env_dispatch(monkeypatch):
-    """DTC_TPU_DEVICE_ENGINE contract: kernel on CPU raises (never a
-    silent deopt), bogus values raise, sigma forces the XLA engine."""
-    import pytest as _pytest
-
-    from dtc_tpu.experiments.device_sweeps import device_forward_sweep
-    from dtc_tpu.experiments.engine import build_context
-    from dtc_tpu.io.disorder import generate_disorder
-    from dtc_tpu.utils.config import SimConfig
-
-    cfg = SimConfig(L=4, tf=2, g=0.9, use_fakebackend=1, n_trajectories=2)
-    hs, phis = generate_disorder(4, 1, seed=1)
-    sched, params, _ = build_context(cfg, hs, phis)
-    key = jax.random.PRNGKey(0)
-    monkeypatch.setenv("DTC_TPU_DEVICE_ENGINE", "bogus")
-    with _pytest.raises(ValueError):
-        device_forward_sweep(cfg, sched, params, key)
-    monkeypatch.setenv("DTC_TPU_DEVICE_ENGINE", "kernel")
-    with _pytest.raises(ValueError):
-        device_forward_sweep(cfg, sched, params, key)
-    monkeypatch.setenv("DTC_TPU_DEVICE_ENGINE", "sigma")
-    out = device_forward_sweep(cfg, sched, params, key)
-    assert out.shape == (1, 2) and np.all(np.isfinite(out))
-
-
-def test_device_general_pol_gather_cliff_guard(monkeypatch):
-    """Requests that would land on the dense gather engine above ~L=24
-    (where it crashes the TPU worker, docs/PERFORMANCE.md) must raise a
-    clear ValueError BEFORE any compute, forward and echo alike. General
-    polarizations are kernel-covered to L=30 ((1,1)-mesh per-shard device
-    rows past 23, split per-plane state at 30 — round 5), so the cliff
-    now sits at L=31; x-polarization bounds at L=30 (kernel/sigma
-    engines), and CPU runs (where the gather path is safe) are not
-    blocked."""
-    import pytest as _pytest
-
-    from dtc_tpu.experiments import device_sweeps
-    from dtc_tpu.experiments.device_sweeps import (
-        device_echo_sweep,
-        device_forward_sweep,
-    )
-    from dtc_tpu.experiments.engine import build_context
-    from dtc_tpu.io.disorder import generate_disorder
-    from dtc_tpu.utils.config import SimConfig
-
-    L = 31
-    cfg = SimConfig(L=L, tf=2, g=0.9, use_fakebackend=1, n_trajectories=2,
-                    polarization="y")
-    hs, phis = generate_disorder(L, 1, seed=1)
-    sched, params, _ = build_context(cfg, hs, phis)
-    key = jax.random.PRNGKey(0)
-    monkeypatch.setattr(device_sweeps.jax, "default_backend", lambda: "tpu")
-    with _pytest.raises(ValueError, match="dense gather"):
-        device_echo_sweep(cfg, sched, params, key)
-    with _pytest.raises(ValueError, match="dense gather"):
-        device_forward_sweep(cfg, sched, params, key)
-    # a too-long schedule misses the per-shard route's tf*K bound and
-    # falls back to the cliff guard even inside 24 <= L <= 29
-    cfg_long = SimConfig(L=26, tf=2048, g=0.9, use_fakebackend=1,
-                         n_trajectories=2, polarization="y")
-    with _pytest.raises(ValueError, match="dense gather"):
-        device_sweeps._guard_gather_path(cfg_long)
-    # at/below the gather ceiling the guard helper passes (L <= 24)
-    cfg_ok = SimConfig(L=24, tf=2, g=0.9, use_fakebackend=1,
-                       n_trajectories=2, polarization="y")
-    device_sweeps._guard_gather_path(cfg_ok)
-    monkeypatch.setattr(device_sweeps.jax, "default_backend", lambda: "cpu")
-    device_sweeps._guard_gather_path(cfg)  # CPU: gather path is safe
-
-
 def test_qiskit_properties_import_roundtrip(tmp_path):
     """C9 calibration ingest: a Qiskit BackendProperties.to_dict() snapshot
     (the schema FakeBrisbane().properties() exports — what the reference's
@@ -659,108 +522,3 @@ def test_qiskit_properties_import_roundtrip(tmp_path):
     assert np.all(np.abs(m.readout - 0.01) <= 1e-5 * n)
 
 
-def test_device_general_kernel_forward_matches_original_order_oracle():
-    """Device noise for GENERAL polarizations at kernel rate (VERDICT r3
-    next #5 stretch): the mid-diagonal bond events commute into the
-    lab-frame kernels' post-kick Pauli hook, with the crossed sublayers'
-    ZZ angles sign-flipped on the bond parity of the passing X mask
-    (core.device_evolve._device_general_rows). Validated trajectory-exact
-    against a dense oracle applying the SAME presampled events in the
-    ORIGINAL circuit order — any error in the commutation algebra fails
-    here, not statistically. Aggressive site-varying noise so every event
-    class fires."""
-    from dtc_tpu.core.device_evolve import (
-        device_general_forward_oracle,
-        device_general_kernel_forward_batch,
-    )
-    from dtc_tpu.io.disorder import generate_disorder
-    from dtc_tpu.models.drives import build_kick_schedule, n_kick_slots
-
-    L, T, q = 14, 4, 7
-    hs, phis = generate_disorder(L, 1, seed=7)
-    hsj = jnp.asarray(hs[0, :L])
-    phj = jnp.asarray(phis[0, : L - 1])
-    p1 = jnp.linspace(0.1, 0.4, L)
-    p2 = jnp.linspace(0.15, 0.45, L - 1)
-    keys = jax.random.split(jax.random.PRNGKey(3), 2)
-    for pol in ("y", "xy", "circular_left"):
-        K = n_kick_slots(pol)
-        sched = build_kick_schedule(pol, 0.97, T)
-        kw = dict(L=L, T=T, K=K, q=q, ancilla_factor=0.9)
-        a_k = np.asarray(device_general_kernel_forward_batch(
-            hsj, phj, p1, p2, sched.angles, keys, interpret=True, **kw))
-        a_o = np.asarray(device_general_forward_oracle(
-            hsj, phj, p1, p2, sched.angles, keys, **kw))
-        assert np.max(np.abs(a_k - a_o)) < 1e-4, (pol, a_k, a_o)
-
-
-def test_device_general_kernel_echo_matches_original_order_oracle():
-    """Device-noise general-polarization ECHO: inverse cycles' bond events
-    commute EARLIER — through the prediag (conjugating it) and the
-    turnaround step's post-D0 — into the previous step's final-slot Pauli
-    hook (core.device_evolve._device_general_echo_rows). Oracle applies
-    the same presample in device_inverse_cycle's original order; the
-    noiseless A0(t) == 1 invariant rides along."""
-    from dtc_tpu.core.device_evolve import (
-        device_general_echo_oracle,
-        device_general_kernel_echo_batch,
-    )
-    from dtc_tpu.io.disorder import generate_disorder
-    from dtc_tpu.models.drives import build_kick_schedule, n_kick_slots
-
-    L, T, q = 14, 4, 7
-    hs, phis = generate_disorder(L, 1, seed=7)
-    hsj = jnp.asarray(hs[0, :L])
-    phj = jnp.asarray(phis[0, : L - 1])
-    p1 = jnp.linspace(0.1, 0.35, L)
-    p2 = jnp.linspace(0.15, 0.4, L - 1)
-    keys = jax.random.split(jax.random.PRNGKey(3), 1)
-    ts = jnp.asarray([1, 3])
-    for pol in ("y", "xy"):
-        K = n_kick_slots(pol)
-        sched = build_kick_schedule(pol, 0.97, T)
-        kw = dict(L=L, T=T, K=K, q=q, ancilla_factor=0.9)
-        a_k = np.asarray(device_general_kernel_echo_batch(
-            hsj, phj, p1, p2, sched.angles, keys, ts, interpret=True, **kw))
-        a_o = np.asarray([device_general_echo_oracle(
-            hsj, phj, p1, p2, sched.angles, keys[0], int(t), **kw)
-            for t in np.asarray(ts)])
-        assert np.max(np.abs(a_k[0] - a_o)) < 1e-4, (pol, a_k, a_o)
-    # noiseless invariant: zero rates => U^dag U = I => A0(t) == 1
-    sched = build_kick_schedule("xy", 0.97, T)
-    a0 = np.asarray(device_general_kernel_echo_batch(
-        hsj, phj, jnp.zeros((L,)), jnp.zeros((L - 1,)), sched.angles, keys,
-        ts, L=L, T=T, K=2, q=q, ancilla_factor=1.0, interpret=True))
-    np.testing.assert_allclose(a0, 1.0, atol=1e-4)
-
-
-def test_device_general_hi_dispatch_routing(monkeypatch):
-    """device_forward_sweep/device_echo_sweep must route general
-    polarizations at 24 <= L <= 29 to the (1,1)-mesh per-shard
-    device-rows helpers (previously those configs raised at the gather
-    cliff). Stubbed helpers — this guards branch SELECTION; the compute
-    path is interpret-validated in tests/test_sharded_kernel.py."""
-    from dtc_tpu.experiments import device_sweeps
-    from dtc_tpu.experiments.engine import build_context
-    from dtc_tpu.io.disorder import generate_disorder
-    from dtc_tpu.utils.config import SimConfig
-
-    L = 26
-    cfg = SimConfig(L=L, tf=2, g=0.9, use_fakebackend=1, n_trajectories=2,
-                    polarization="y")
-    hs, phis = generate_disorder(L, 1, seed=1)
-    sched, params, _ = build_context(cfg, hs, phis)
-    key = jax.random.PRNGKey(0)
-    hit = []
-    monkeypatch.setattr(device_sweeps.jax, "default_backend", lambda: "tpu")
-    monkeypatch.setattr(
-        device_sweeps, "_device_general_hi_forward",
-        lambda *a, **k: hit.append("fwd") or np.zeros((1, 2)))
-    monkeypatch.setattr(
-        device_sweeps, "_device_general_hi_echo",
-        lambda *a, **k: hit.append("echo") or np.zeros((1, 2)))
-    assert device_sweeps.device_forward_sweep(cfg, sched, params, key).shape \
-        == (1, 2)
-    assert device_sweeps.device_echo_sweep(cfg, sched, params, key).shape \
-        == (1, 2)
-    assert hit == ["fwd", "echo"]

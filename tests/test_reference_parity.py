@@ -57,22 +57,17 @@ def test_exact_dm_matches_reference_shot_data():
 
 @pytest.mark.slow
 def test_l20_trajectory_engine_matches_reference_shot_data():
-    """External parity at the HEADLINE scale (VERDICT r2 missing #2): the
+    """External parity at the HEADLINE scale: the
     trajectory engine (the path that actually runs at L=20) against the
     reference's shipped 1024-shot L=20 polarization data, using its own
     hs_L20/phis_L20 disorder inputs. CPU-sized: pol x, forward t<=10 +
     echo at t=2, with bands from shot noise + the empirical trajectory
-    ensemble error (the TPU-side benchmarks/l20_reference_parity.py runs
-    all four polarizations, full tf, forward AND echo, at 2048
-    trajectories — recorded in benchmarks/parity_results.json)."""
+    ensemble error."""
     import jax
     import jax.numpy as jnp
 
-    from dtc_tpu.experiments.engine import (
-        _echo_batch,
-        _forward_batch,
-        build_context,
-    )
+    from dtc_tpu.core.sigma_evolve import sigma_echo_batch, sigma_forward_batch
+    from dtc_tpu.experiments.engine import build_context
     from dtc_tpu.io.disorder import load_disorder
     from dtc_tpu.models.noise import NoiseSpec
     from dtc_tpu.utils.config import SimConfig
@@ -94,7 +89,7 @@ def test_l20_trajectory_engine_matches_reference_shot_data():
               dtype_name="complex64", ancilla_factor=NoiseSpec(p=0.05
                                                                ).ancilla_factor)
     keys = jax.random.split(jax.random.PRNGKey(11), 40)[None]
-    vals = np.asarray(_forward_batch(*params, sched.angles, keys, **kw))[0]
+    vals = np.asarray(sigma_forward_batch(*params, sched.angles, keys, **kw))[0]
     mean_f = vals.mean(axis=0)
     se_f = vals.std(axis=0) / np.sqrt(vals.shape[0])
     band = 3.5 * np.sqrt(sigma_shot**2 + se_f**2)
@@ -107,7 +102,7 @@ def test_l20_trajectory_engine_matches_reference_shot_data():
     ekw = dict(kw)
     ekw["T"] = 3
     keys_e = jax.random.split(jax.random.PRNGKey(5), 16)[None]
-    ev = np.asarray(_echo_batch(*params, sched.angles, keys_e,
+    ev = np.asarray(sigma_echo_batch(*params, sched.angles, keys_e,
                                 jnp.asarray([2]), **ekw))[0, :, 0]
     se_e = ev.std() / np.sqrt(len(ev))
     dev_e = ev.mean() - ref_e[2]
@@ -141,7 +136,7 @@ def test_disorder_loader_reads_reference_files():
 @pytest.mark.parametrize("gain", ["0.01", "0.05"])
 def test_l4_adaptive_g_history_replay(gain):
     """Replay the reference's SHIPPED adaptive g-history through the
-    per-cycle-g engine (VERDICT r3 next #4): the controlled-g datasets
+    per-cycle-g engine: the controlled-g datasets
     record the exact g value the feedback loop applied at every cycle
     (g_history_inst1), so feeding that column back in as a (T,) g vector
     must reproduce the shipped forward/echo measurements within their

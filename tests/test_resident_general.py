@@ -1,12 +1,5 @@
-"""General (lab-frame) resident kernel: host-side wrappers + the lab-frame
-reference that caught the sigma engine's K>=2 echo bug.
-
-TPU-precision validation runs in benchmarks/: values match the sigma
-engine to <=2.7e-4 (the bf16x3 dot level; far under trajectory sampling
-noise) for every polarization family (x/y/xy/yx/circular/xy_cycle),
-forward and echo, L=14/17/20, with identical presampled trajectories
-(docs/PERFORMANCE.md). Interpret-mode numerical parity additionally runs
-in the CPU suite (tests/test_kernel_interpret_parity.py).
+"""Sigma engine for general drives (y/xy/circular, K >= 2) against a
+literal lab-frame reference.
 
 The lab-frame reference here evolves the literal statevector in numpy —
 slot unitaries kron'd to 2^L, explicit X-permutation / Z-sign per sampled
@@ -30,7 +23,6 @@ from dtc_tpu.core.sigma_evolve import (
 )
 from dtc_tpu.io.disorder import generate_disorder
 from dtc_tpu.models.drives import build_kick_schedule, slot_unitary
-from dtc_tpu.ops.pallas_resident_general import slot_u8
 
 import exact_oracle as oracle
 
@@ -119,19 +111,6 @@ def lab_echo(L, t, T, K, angles, h, ph, xm, zm, q, af):
 # tests
 
 
-def test_slot_u8_matches_slot_unitary():
-    for tx, ty in [(2.9, 0.0), (0.0, 1.3), (1.1, 0.7)]:
-        u = np.asarray(slot_unitary(jnp.float32(tx), jnp.float32(ty)))
-        u8 = np.asarray(slot_u8(jnp.float32(tx), jnp.float32(ty)))
-        want = np.stack([u.real.ravel(), u.imag.ravel()], axis=1).ravel()
-        np.testing.assert_allclose(u8, want, atol=1e-6)
-        ui8 = np.asarray(slot_u8(jnp.float32(tx), jnp.float32(ty),
-                                 inverse=True))
-        ud = u.conj().T
-        want_i = np.stack([ud.real.ravel(), ud.imag.ravel()], axis=1).ravel()
-        np.testing.assert_allclose(ui8, want_i, atol=1e-6)
-
-
 @pytest.mark.parametrize("pol", ["xy", "circular_left"])
 def test_sigma_echo_k2_matches_lab_frame_per_trajectory(pol):
     """Regression for the K>=2 echo bug: trajectory-exact comparison against
@@ -201,40 +180,6 @@ def test_sigma_echo_k2_matches_oracle_statistically():
         want = oracle.autocorr_dm(L, g, hs[0], phis[0], t, p, echo=True,
                                   polarization=pol)
         assert abs(mean[t] - want) < 0.03, (t, mean[t], want)
-
-
-def test_general_kernel_rejects_bad_L():
-    from dtc_tpu.ops.pallas_resident_general import (
-        general_echo_batch,
-        general_forward_batch,
-    )
-
-    keys = jax.random.split(jax.random.PRNGKey(0), 1)[None]
-    with pytest.raises(ValueError, match="14 <= L <= 23"):
-        general_forward_batch(
-            jnp.ones((1, 8)), jnp.ones((1, 7)), jnp.zeros((2, 1, 2)), keys,
-            L=8, T=2, K=1, p=0.0, q=4)
-    with pytest.raises(ValueError, match="14 <= L <= 23"):
-        general_echo_batch(
-            jnp.ones((1, 8)), jnp.ones((1, 7)), jnp.zeros((2, 1, 2)), keys,
-            jnp.arange(2), L=8, T=2, K=1, p=0.0, q=4)
-
-
-def test_general_dispatch_logic():
-    """y/xy schedules qualify for the general kernel on TPU (never on CPU);
-    tracers and oversized step counts never do."""
-    from dtc_tpu.experiments.engine import _general_dispatch
-
-    ywise = jnp.ones((10, 1, 2))
-    kw = dict(K=1, L=16, q=8, T=10, dtype_name="complex64", engine="auto")
-    on_cpu = jax.default_backend() == "cpu"
-
-    assert _general_dispatch(ywise, **kw) == (not on_cpu)
-    assert _general_dispatch(ywise, **{**kw, "K": 2}) == (not on_cpu)
-    assert not _general_dispatch(ywise, **{**kw, "L": 12})
-    assert not _general_dispatch(ywise, **{**kw, "T": 300})
-    assert not _general_dispatch(ywise, **{**kw, "dtype_name": "complex128"})
-    assert not _general_dispatch(ywise, **{**kw, "engine": "sigma"})
 
 
 def test_forward_sweep_y_on_cpu_unaffected():
